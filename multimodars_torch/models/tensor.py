@@ -1,0 +1,646 @@
+"""TensorGeometry — the array spine of the hot pipelines.
+
+The reference's pointer-rich ``Vec<Frame>`` / ``HashMap<ContourType, Contour>``
+(geometry.rs, frame.rs) is the right shape for a CPU object model but the
+wrong shape for a device pipeline: every stage would re-pack it.  This module
+keeps one rectangular array set per contour kind for a whole pullback —
+``coords[kind]: float64[F, P_kind, 3]`` plus parallel metadata arrays — so
+
+- every rigid transform / sort / wall-synthesis step is one vectorised pass,
+- the device boundary is a single contiguous gather + transfer,
+- the object model (PyGeometry) is materialised exactly once, at the end,
+  with contours holding *views* into the big arrays (zero copies).
+
+Rectangularity is guaranteed by the integrity gate's per-kind point-count
+check (integrity_check.rs:8-32 / io/build.check_geometry_integrity); kinds
+missing from some frames carry a per-frame ``present`` mask.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from .contour import PyContour
+from .frame import PyFrame
+from .geometry import PyGeometry
+from .point import PyContourPoint
+
+
+def _opt_to_nan(v) -> float:
+    return np.nan if v is None else float(v)
+
+
+def _nan_to_opt(v: float):
+    return None if np.isnan(v) else float(v)
+
+
+@dataclass
+class TensorGeometry:
+    """Array form of a PyGeometry: rectangular per-kind stacks + metadata.
+
+    Per kind k (``kinds[0]`` is always "Lumen"; the rest keep the frame
+    ``extras`` insertion order):
+
+    - ``coords[k]``:    float64 [F, P_k, 3]
+    - ``present[k]``:   bool    [F]        contour exists in this frame
+    - ``pt_frame[k]``:  int64   [F, P_k]   per-point frame_index
+    - ``pt_index[k]``:  int64   [F, P_k]   per-point point_index
+    - ``pt_aortic[k]``: bool    [F, P_k]
+    - ``con_centroid[k]``: float64 [F, 3]  stored contour centroids
+    - ``aortic_th[k]`` / ``pulm_th[k]``: float64 [F], NaN encodes None
+
+    Frame-level: ``ids`` int64 [F], ``orig_frame`` int64 [F] (original frame
+    id, shared across kinds by the integrity gate), ``centroids`` float64
+    [F, 3], plus the single reference point and its frame position.
+    """
+
+    label: str
+    kinds: List[str]
+    coords: Dict[str, np.ndarray]
+    present: Dict[str, np.ndarray]
+    pt_frame: Dict[str, np.ndarray]
+    pt_index: Dict[str, np.ndarray]
+    pt_aortic: Dict[str, np.ndarray]
+    con_centroid: Dict[str, np.ndarray]
+    aortic_th: Dict[str, np.ndarray]
+    pulm_th: Dict[str, np.ndarray]
+    ids: np.ndarray
+    orig_frame: np.ndarray
+    centroids: np.ndarray
+    ref_pos: Optional[int] = None
+    ref_point: Optional[PyContourPoint] = None
+
+    @property
+    def n_frames(self) -> int:
+        return int(self.ids.shape[0])
+
+    def n_points(self, kind: str = "Lumen") -> int:
+        return int(self.coords[kind].shape[1])
+
+    # -- vectorised ops (hot-path building blocks) --------------------------
+
+    def rotate_about_frame_centroids(self, angles: np.ndarray) -> None:
+        """Rotate every kind's points (and the reference point) about each
+        frame's own (x, y) centroid.  Frame::rotate semantics: stored contour
+        centroids are NOT recomputed (frame.rs:40-63)."""
+        angles = np.asarray(angles, dtype=np.float64)
+        c = np.cos(angles)[:, None]
+        s = np.sin(angles)[:, None]
+        cx = self.centroids[:, 0][:, None]
+        cy = self.centroids[:, 1][:, None]
+        for k in self.kinds:
+            xyz = self.coords[k]
+            x = xyz[:, :, 0] - cx
+            y = xyz[:, :, 1] - cy
+            xyz[:, :, 0] = x * c - y * s + cx
+            xyz[:, :, 1] = x * s + y * c + cy
+        if self.ref_point is not None and self.ref_pos is not None:
+            i = self.ref_pos
+            a = float(angles[i])
+            if a != 0.0:
+                self.ref_point = self.ref_point.rotate(
+                    a, (float(self.centroids[i, 0]), float(self.centroids[i, 1]))
+                )
+
+    def translate_per_frame(self, deltas: np.ndarray) -> None:
+        """Translate frame i by deltas[i]; recomputes contour centroids and
+        moves frame centroids / reference point (Frame::translate,
+        frame.rs:18-38)."""
+        deltas = np.asarray(deltas, dtype=np.float64)
+        for k in self.kinds:
+            self.coords[k] += deltas[:, None, :]
+            self.con_centroid[k] = self.coords[k].mean(axis=1)
+        self.centroids = self.centroids + deltas
+        if self.ref_point is not None and self.ref_pos is not None:
+            d = deltas[self.ref_pos]
+            self.ref_point.x += float(d[0])
+            self.ref_point.y += float(d[1])
+            self.ref_point.z += float(d[2])
+
+    def ccw_roll(self) -> None:
+        """Re-establish the "last highest-Y point first" start convention by
+        rolling each (already CCW-sorted) contour.
+
+        A rotation about any pivot is a rigid motion: every point's angle
+        about the (co-rotated) contour mean shifts by the same amount, so the
+        CCW *circular* order of an already-sorted contour is unchanged — only
+        the start point (Contour::sort_contour_points' last-max-Y roll,
+        contour.rs:368-405) moves.  After a whole-contour rotation this is
+        therefore equivalent to a full :meth:`ccw_sort` at a fraction of the
+        cost (no atan2, no argsort)."""
+        for k in self.kinds:
+            self._roll_kind(k)
+
+    def _roll_kind(self, k: str) -> None:
+        """Last-max-Y start roll for one kind (see :meth:`ccw_roll`)."""
+        xyz = self.coords[k]
+        F, n = xyz.shape[:2]
+        if n == 0:
+            return
+        y = xyz[:, :, 1]
+        start = n - 1 - np.argmax(y[:, ::-1], axis=1)  # last max
+        roll = (np.arange(n)[None, :] + start[:, None]) % n
+        self.coords[k] = np.take_along_axis(xyz, roll[:, :, None], axis=1)
+        pf = self.pt_frame[k]
+        if not (pf[:, :1] == pf).all():
+            self.pt_frame[k] = np.take_along_axis(pf, roll, axis=1)
+        pa = self.pt_aortic[k]
+        if pa.any():
+            self.pt_aortic[k] = np.take_along_axis(pa, roll, axis=1)
+        self.pt_index[k] = np.broadcast_to(
+            np.arange(n, dtype=np.int64), (F, n)
+        ).copy()
+
+    def ccw_sort(self) -> None:
+        """CCW-sort every contour: stable angle sort about the contour's own
+        xy mean, rolled so the *last* highest-Y point is first, point indices
+        reassigned (Contour::sort_contour_points, contour.rs:368-405)."""
+        from ..io import native as _native
+
+        for k in self.kinds:
+            xyz = self.coords[k]
+            F, n = xyz.shape[:2]
+            if n == 0:
+                continue
+            x = xyz[:, :, 0]
+            y = xyz[:, :, 1]
+            ang = np.arctan2(
+                y - y.mean(axis=1)[:, None], x - x.mean(axis=1)[:, None]
+            )
+            # native fused argsort+roll+gather: the angles come from numpy's
+            # arctan2, the stable sort replicates numpy's tie order, so the
+            # permutation is identical (tests/test_native_finish.py); NaN
+            # angles keep the numpy path's argmax-over-NaN start semantics
+            native_res = None
+            if (
+                xyz.dtype == np.float64
+                and xyz.flags["C_CONTIGUOUS"]
+                and xyz.shape[2] == 3
+                and np.isfinite(ang).all()
+            ):
+                native_res = _native.ccw_sort_native(
+                    xyz, np.ascontiguousarray(ang)
+                )
+            if native_res is not None:
+                self.coords[k], order = native_res
+                pf = self.pt_frame[k]
+                if not (pf[:, :1] == pf).all():
+                    self.pt_frame[k] = np.take_along_axis(pf, order, axis=1)
+                pa = self.pt_aortic[k]
+                if pa.any():
+                    self.pt_aortic[k] = np.take_along_axis(pa, order, axis=1)
+                self.pt_index[k] = np.broadcast_to(
+                    np.arange(n, dtype=np.int64), (F, n)
+                ).copy()
+                continue
+            order = np.argsort(ang, axis=1, kind="stable")
+            y_sorted = np.take_along_axis(y, order, axis=1)
+            start = n - 1 - np.argmax(y_sorted[:, ::-1], axis=1)  # last max
+            roll = (np.arange(n)[None, :] + start[:, None]) % n
+            order = np.take_along_axis(order, roll, axis=1)
+            self.coords[k] = np.take_along_axis(xyz, order[:, :, None], axis=1)
+            # per-point frame indices are constant per row in every funnel
+            # state (original id or renumbered id), so permuting is a no-op;
+            # aortic flags are overwhelmingly all-False pre-assignment
+            pf = self.pt_frame[k]
+            if not (pf[:, :1] == pf).all():
+                self.pt_frame[k] = np.take_along_axis(pf, order, axis=1)
+            pa = self.pt_aortic[k]
+            if pa.any():
+                self.pt_aortic[k] = np.take_along_axis(pa, order, axis=1)
+            self.pt_index[k] = np.broadcast_to(
+                np.arange(n, dtype=np.int64), (F, n)
+            ).copy()
+
+    def rigid_transform(self, angles: np.ndarray, deltas: np.ndarray) -> None:
+        """Fused rotate-about-frame-centroids followed by per-frame
+        translate — one read/write pass instead of two.  Exactly
+        ``rotate_about_frame_centroids(angles)`` then
+        ``translate_per_frame(deltas)`` (incl. the contour-centroid
+        recompute of the translate step)."""
+        angles = np.asarray(angles, dtype=np.float64)
+        deltas = np.asarray(deltas, dtype=np.float64)
+        c = np.cos(angles)[:, None]
+        s = np.sin(angles)[:, None]
+        cx = self.centroids[:, 0][:, None]
+        cy = self.centroids[:, 1][:, None]
+        dx = deltas[:, 0][:, None]
+        dy = deltas[:, 1][:, None]
+        dz = deltas[:, 2][:, None]
+        for k in self.kinds:
+            xyz = self.coords[k]
+            x = xyz[:, :, 0] - cx
+            y = xyz[:, :, 1] - cy
+            xyz[:, :, 0] = x * c - y * s + cx + dx
+            xyz[:, :, 1] = x * s + y * c + cy + dy
+            if dz.any():
+                xyz[:, :, 2] += dz
+            self.con_centroid[k] = xyz.mean(axis=1)
+        if self.ref_point is not None and self.ref_pos is not None:
+            i = self.ref_pos
+            a = float(angles[i])
+            if a != 0.0:
+                self.ref_point = self.ref_point.rotate(
+                    a, (float(self.centroids[i, 0]), float(self.centroids[i, 1]))
+                )
+            d = deltas[i]
+            self.ref_point.x += float(d[0])
+            self.ref_point.y += float(d[1])
+            self.ref_point.z += float(d[2])
+        self.centroids = self.centroids + deltas
+
+    def finish_transform(self, angles: np.ndarray, deltas: np.ndarray,
+                         additional: float, ccw_roll: bool = False) -> None:
+        """Fused alignment epilogue transform: per-frame rotation ``angles``
+        about the frame centroid, translation ``deltas``, then an extra
+        whole-geometry rotation ``additional`` about each frame's *new*
+        centroid — in one read/write pass per kind.
+
+        2-D rotations about a shared pivot commute and compose additively,
+        and the post-translate centroid is the pre-translate centroid plus
+        ``deltas``, so the composition collapses to a single rotation by
+        ``angles + additional`` about the *original* centroid followed by the
+        translation.  Semantics are exactly ``rigid_transform(angles,
+        deltas)`` followed by ``rotate_about_frame_centroids(additional)``
+        (the latter, like Frame::rotate, leaves stored contour centroids
+        untouched — they stay at their post-translate values, which are
+        computed analytically here instead of by a full mean pass).
+
+        ``ccw_roll=True`` additionally re-establishes the last-highest-Y
+        start convention (see :meth:`ccw_roll`) fused into the same pass:
+        the roll indices come from the post-transform y, the gather runs on
+        the freshly computed x/y planes only, and z — constant per frame on
+        every funnel-built geometry, which the fused path verifies — is
+        copied without a gather.  Falls back to the generic
+        :meth:`ccw_roll` when z varies within a frame."""
+        angles = np.asarray(angles, dtype=np.float64)
+        deltas = np.asarray(deltas, dtype=np.float64)
+        total = angles + additional
+        ct = np.cos(total)[:, None]
+        st = np.sin(total)[:, None]
+        c = np.cos(angles)
+        s = np.sin(angles)
+        cx = self.centroids[:, 0][:, None]
+        cy = self.centroids[:, 1][:, None]
+        dx = deltas[:, 0][:, None]
+        dy = deltas[:, 1][:, None]
+        dz = deltas[:, 2][:, None]
+        add_z = bool(dz.any())
+        from ..io import native as _native
+
+        for k in self.kinds:
+            xyz = self.coords[k]
+            n = xyz.shape[1]
+            do_roll = (
+                ccw_roll
+                and n > 0
+                and bool((xyz[:, :1, 2] == xyz[:, :, 2]).all())
+            )
+            # native fused pass (bit-identical; tests/test_native_finish.py)
+            native_res = None
+            if (
+                xyz.dtype == np.float64
+                and xyz.flags["C_CONTIGUOUS"]
+                and xyz.shape[2] == 3
+                and n > 0
+            ):
+                native_res = _native.finish_roll_native(
+                    xyz,
+                    np.ascontiguousarray(ct[:, 0]),
+                    np.ascontiguousarray(st[:, 0]),
+                    np.ascontiguousarray(cx[:, 0]),
+                    np.ascontiguousarray(cy[:, 0]),
+                    np.ascontiguousarray(dx[:, 0]),
+                    np.ascontiguousarray(dy[:, 0]),
+                    np.ascontiguousarray(dz[:, 0]),
+                    add_z,
+                    do_roll,
+                )
+            if native_res is not None:
+                out, start = native_res
+                if do_roll:
+                    self.coords[k] = out
+                    xyz = out
+                    roll = None
+                    pf = self.pt_frame[k]
+                    if not (pf[:, :1] == pf).all():
+                        roll = (np.arange(n)[None, :] + start[:, None]) % n
+                        self.pt_frame[k] = np.take_along_axis(pf, roll, axis=1)
+                    pa = self.pt_aortic[k]
+                    if pa.any():
+                        if roll is None:
+                            roll = (np.arange(n)[None, :] + start[:, None]) % n
+                        self.pt_aortic[k] = np.take_along_axis(pa, roll, axis=1)
+                    F_k = xyz.shape[0]
+                    self.pt_index[k] = np.broadcast_to(
+                        np.arange(n, dtype=np.int64), (F_k, n)
+                    ).copy()
+                elif ccw_roll:
+                    self._roll_kind(k)
+            elif do_roll:
+                x = xyz[:, :, 0] - cx
+                y = xyz[:, :, 1] - cy
+                xp = x * ct - y * st + cx + dx
+                yp = x * st + y * ct + cy + dy
+                start = n - 1 - np.argmax(yp[:, ::-1], axis=1)  # last max
+                roll = (np.arange(n)[None, :] + start[:, None]) % n
+                out = np.empty_like(xyz)
+                out[:, :, 0] = np.take_along_axis(xp, roll, axis=1)
+                out[:, :, 1] = np.take_along_axis(yp, roll, axis=1)
+                out[:, :, 2] = xyz[:, :, 2]  # constant per frame: no gather
+                if add_z:
+                    out[:, :, 2] += dz
+                self.coords[k] = out
+                xyz = out
+                pf = self.pt_frame[k]
+                if not (pf[:, :1] == pf).all():
+                    self.pt_frame[k] = np.take_along_axis(pf, roll, axis=1)
+                pa = self.pt_aortic[k]
+                if pa.any():
+                    self.pt_aortic[k] = np.take_along_axis(pa, roll, axis=1)
+                F_k = xyz.shape[0]
+                self.pt_index[k] = np.broadcast_to(
+                    np.arange(n, dtype=np.int64), (F_k, n)
+                ).copy()
+            else:
+                x = xyz[:, :, 0] - cx
+                y = xyz[:, :, 1] - cy
+                xyz[:, :, 0] = x * ct - y * st + cx + dx
+                xyz[:, :, 1] = x * st + y * ct + cy + dy
+                if add_z:
+                    xyz[:, :, 2] += dz
+                if ccw_roll:
+                    self._roll_kind(k)
+            # post-translate contour centroid, analytically: the mean
+            # commutes with the rigid map R_angles(. - c) + c + t
+            cc = self.con_centroid[k]
+            mx = cc[:, 0] - cx[:, 0]
+            my = cc[:, 1] - cy[:, 0]
+            new_cc = np.empty_like(cc)
+            new_cc[:, 0] = mx * c - my * s + cx[:, 0] + dx[:, 0]
+            new_cc[:, 1] = mx * s + my * c + cy[:, 0] + dy[:, 0]
+            new_cc[:, 2] = cc[:, 2] + deltas[:, 2]
+            self.con_centroid[k] = new_cc
+        if self.ref_point is not None and self.ref_pos is not None:
+            i = self.ref_pos
+            a = float(angles[i])
+            piv = (float(self.centroids[i, 0]), float(self.centroids[i, 1]))
+            if a != 0.0:
+                self.ref_point = self.ref_point.rotate(a, piv)
+            d = deltas[i]
+            self.ref_point.x += float(d[0])
+            self.ref_point.y += float(d[1])
+            self.ref_point.z += float(d[2])
+            if additional != 0.0:
+                self.ref_point = self.ref_point.rotate(
+                    additional,
+                    (piv[0] + float(d[0]), piv[1] + float(d[1])),
+                )
+        self.centroids = self.centroids + deltas
+
+    def smooth_xy(self) -> None:
+        """Three-frame moving average of x/y per point index on Lumen, Eem
+        and Wall (mirror boundary); updates contour centroids only
+        (Geometry::smooth_frames, geometry.rs:165-239)."""
+        n = self.n_frames
+        if n == 0:
+            return
+        prev_i = np.maximum(np.arange(n) - 1, 0)
+        next_i = np.minimum(np.arange(n) + 1, n - 1)
+        for k in ("Lumen", "Eem", "Wall"):
+            if k not in self.coords or not self.present[k].all():
+                if k in self.coords and self.present[k].any():
+                    self._smooth_xy_sparse(k, prev_i, next_i)
+                continue
+            xyz = self.coords[k]
+            avg = (xyz[prev_i, :, :2] + xyz[:, :, :2] + xyz[next_i, :, :2]) / 3.0
+            xyz[:, :, :2] = avg
+            self.con_centroid[k] = np.concatenate(
+                [avg.mean(axis=1), xyz[:, :, 2].mean(axis=1)[:, None]], axis=1
+            )
+
+    def _smooth_xy_sparse(self, k: str, prev_i, next_i) -> None:
+        pres = self.present[k]
+        src = self.coords[k].copy()
+        for i in range(self.n_frames):
+            p, nx = prev_i[i], next_i[i]
+            if pres[i] and pres[p] and pres[nx]:
+                self.coords[k][i, :, :2] = (
+                    src[p, :, :2] + src[i, :, :2] + src[nx, :, :2]
+                ) / 3.0
+                self.con_centroid[k][i] = self.coords[k][i].mean(axis=0)
+
+    # -- conversions ---------------------------------------------------------
+
+    def frame_view(self, i: int) -> PyFrame:
+        """Materialise one frame whose contours are views into the tensor
+        arrays (mutations write through; rows are disjoint so views are
+        alias-safe across frames)."""
+        fid = int(self.ids[i])
+        orig = int(self.orig_frame[i])
+        lumen = _contour_view(self, "Lumen", i, fid, orig)
+        extras: Dict[str, PyContour] = {}
+        for k in self.kinds[1:]:
+            if self.present[k][i]:
+                extras[k] = _contour_view(self, k, i, fid, orig)
+        frame = PyFrame.__new__(PyFrame)
+        frame.id = fid
+        frame.centroid = (
+            float(self.centroids[i, 0]),
+            float(self.centroids[i, 1]),
+            float(self.centroids[i, 2]),
+        )
+        frame.lumen = lumen
+        frame.extras = extras
+        frame.reference_point = (
+            self.ref_point.copy()
+            if (self.ref_point is not None and i == self.ref_pos)
+            else None
+        )
+        return frame
+
+    def to_geometry(self) -> PyGeometry:
+        """Materialise the object model once; contours hold views into the
+        tensor arrays (no coordinate copies)."""
+        F = self.n_frames
+        # scalar metadata prefetched as python lists (one bulk conversion
+        # instead of F*K single-element numpy reads)
+        cc = {k: self.con_centroid[k].tolist() for k in self.kinds}
+        cc_nan = {k: np.isnan(self.con_centroid[k][:, 0]).tolist() for k in self.kinds}
+        ath = {k: self.aortic_th[k].tolist() for k in self.kinds}
+        ath_nan = {k: np.isnan(self.aortic_th[k]).tolist() for k in self.kinds}
+        pth = {k: self.pulm_th[k].tolist() for k in self.kinds}
+        pth_nan = {k: np.isnan(self.pulm_th[k]).tolist() for k in self.kinds}
+        pres = {k: self.present[k].tolist() for k in self.kinds}
+        ids = self.ids.tolist()
+        origs = self.orig_frame.tolist()
+        cents = self.centroids.tolist()
+
+        frames: List[PyFrame] = []
+        for i in range(F):
+            fid = ids[i]
+            orig = origs[i]
+
+            def _view(k):
+                c = PyContour.__new__(PyContour)
+                c.id = fid
+                c.original_frame = orig
+                c._coords = self.coords[k][i]
+                c._frame_idx = self.pt_frame[k][i]
+                c._point_idx = self.pt_index[k][i]
+                c._aortic = self.pt_aortic[k][i]
+                c.centroid = None if cc_nan[k][i] else tuple(cc[k][i])
+                c.aortic_thickness = None if ath_nan[k][i] else ath[k][i]
+                c.pulmonary_thickness = None if pth_nan[k][i] else pth[k][i]
+                c.kind = k
+                return c
+
+            frame = PyFrame.__new__(PyFrame)
+            frame.id = fid
+            frame.centroid = tuple(cents[i])
+            frame.lumen = _view("Lumen")
+            frame.extras = {k: _view(k) for k in self.kinds[1:] if pres[k][i]}
+            frame.reference_point = (
+                self.ref_point.copy()
+                if (self.ref_point is not None and i == self.ref_pos)
+                else None
+            )
+            frames.append(frame)
+        return PyGeometry(frames, self.label)
+
+    def copy(self) -> "TensorGeometry":
+        return TensorGeometry(
+            label=self.label,
+            kinds=list(self.kinds),
+            coords={k: v.copy() for k, v in self.coords.items()},
+            present={k: v.copy() for k, v in self.present.items()},
+            pt_frame={k: v.copy() for k, v in self.pt_frame.items()},
+            pt_index={k: v.copy() for k, v in self.pt_index.items()},
+            pt_aortic={k: v.copy() for k, v in self.pt_aortic.items()},
+            con_centroid={k: v.copy() for k, v in self.con_centroid.items()},
+            aortic_th={k: v.copy() for k, v in self.aortic_th.items()},
+            pulm_th={k: v.copy() for k, v in self.pulm_th.items()},
+            ids=self.ids.copy(),
+            orig_frame=self.orig_frame.copy(),
+            centroids=self.centroids.copy(),
+            ref_pos=self.ref_pos,
+            ref_point=None if self.ref_point is None else self.ref_point.copy(),
+        )
+
+
+def _contour_view(tg: TensorGeometry, kind: str, i: int, fid: int, orig: int) -> PyContour:
+    c = PyContour.__new__(PyContour)
+    c.id = fid
+    c.original_frame = orig
+    c._coords = tg.coords[kind][i]
+    c._frame_idx = tg.pt_frame[kind][i]
+    c._point_idx = tg.pt_index[kind][i]
+    c._aortic = tg.pt_aortic[kind][i]
+    cc = tg.con_centroid[kind][i]
+    c.centroid = (
+        (float(cc[0]), float(cc[1]), float(cc[2])) if not np.isnan(cc[0]) else None
+    )
+    c.aortic_thickness = _nan_to_opt(tg.aortic_th[kind][i])
+    c.pulmonary_thickness = _nan_to_opt(tg.pulm_th[kind][i])
+    c.kind = kind
+    return c
+
+
+def geometry_to_tensor(
+    geometry: PyGeometry, kinds=None, dtype=None
+) -> TensorGeometry:
+    """Pack a (rectangular, integrity-checked) PyGeometry into the array
+    spine.  Raises ValueError if any kind's point count varies across the
+    frames that carry it — callers fall back to the object pipeline then.
+
+    ``kinds`` (round-1 compat): restrict packing to these contour kinds
+    (Lumen is always included).  ``dtype`` (round-1 compat): cast the
+    coordinate arrays; the spine's own math is f64, so anything else is
+    for export use only."""
+    frames = geometry.frames
+    F = len(frames)
+    requested = None if kinds is None else set(kinds) | {"Lumen"}
+    kinds: List[str] = ["Lumen"]
+    for f in frames:
+        for k in f.extras.keys():
+            if k not in kinds and (requested is None or k in requested):
+                kinds.append(k)
+
+    coords: Dict[str, np.ndarray] = {}
+    present: Dict[str, np.ndarray] = {}
+    pt_frame: Dict[str, np.ndarray] = {}
+    pt_index: Dict[str, np.ndarray] = {}
+    pt_aortic: Dict[str, np.ndarray] = {}
+    con_centroid: Dict[str, np.ndarray] = {}
+    aortic_th: Dict[str, np.ndarray] = {}
+    pulm_th: Dict[str, np.ndarray] = {}
+
+    for k in kinds:
+        cons = [
+            (f.lumen if k == "Lumen" else f.extras.get(k)) for f in frames
+        ]
+        counts = {c.n_points for c in cons if c is not None}
+        if len(counts) != 1:
+            raise ValueError(f"ragged point counts for kind {k}: {sorted(counts)}")
+        P = counts.pop()
+        coords[k] = np.zeros((F, P, 3), dtype=np.float64 if dtype is None else dtype)
+        present[k] = np.zeros(F, dtype=bool)
+        pt_frame[k] = np.zeros((F, P), dtype=np.int64)
+        pt_index[k] = np.zeros((F, P), dtype=np.int64)
+        pt_aortic[k] = np.zeros((F, P), dtype=bool)
+        con_centroid[k] = np.full((F, 3), np.nan)
+        aortic_th[k] = np.full(F, np.nan)
+        pulm_th[k] = np.full(F, np.nan)
+        for i, c in enumerate(cons):
+            if c is None:
+                continue
+            present[k][i] = True
+            coords[k][i] = c._coords
+            pt_frame[k][i] = c._frame_idx
+            pt_index[k][i] = c._point_idx
+            pt_aortic[k][i] = c._aortic
+            if c.centroid is not None:
+                con_centroid[k][i] = c.centroid
+            aortic_th[k][i] = _opt_to_nan(c.aortic_thickness)
+            pulm_th[k][i] = _opt_to_nan(c.pulmonary_thickness)
+
+    ref_pos = None
+    ref_point = None
+    for i, f in enumerate(frames):
+        if f.reference_point is not None:
+            ref_pos = i
+            ref_point = f.reference_point.copy()
+            break
+
+    return TensorGeometry(
+        label=geometry.label,
+        kinds=kinds,
+        coords=coords,
+        present=present,
+        pt_frame=pt_frame,
+        pt_index=pt_index,
+        pt_aortic=pt_aortic,
+        con_centroid=con_centroid,
+        aortic_th=aortic_th,
+        pulm_th=pulm_th,
+        ids=np.array([f.id for f in frames], dtype=np.int64),
+        orig_frame=np.array(
+            [f.lumen.original_frame for f in frames], dtype=np.int64
+        ),
+        centroids=np.array([f.centroid for f in frames], dtype=np.float64)
+        if frames
+        else np.zeros((0, 3)),
+        ref_pos=ref_pos,
+        ref_point=ref_point,
+    )
+
+
+def tensor_to_geometry(tensor: TensorGeometry, template=None) -> PyGeometry:
+    """Alias of :meth:`TensorGeometry.to_geometry`.  ``template`` (round-1
+    compat) is accepted and ignored: the spine carries every piece of
+    metadata the old template argument supplied (ids, kinds, thicknesses,
+    reference point)."""
+    return tensor.to_geometry()

@@ -1,0 +1,154 @@
+"""Tests of the port that need an NVIDIA GPU: the hand-written sweep kernel
+against its plain version, and the single-pullback path on CUDA against the
+CPU path.  They skip where ``torch.cuda.is_available()`` is false.
+
+The machine with the card has no JAX, so this file imports none and is run
+there without the repository's conftest:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import contextlib
+import io
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import multimodars_torch as mt
+from multimodars_torch.ops import rotation_search as rs
+from multimodars_torch.ops import sweep
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _sets(F=4, N=300, M=280, seed=0):
+    rng = np.random.default_rng(seed)
+    test = rng.standard_normal((F, N, 2))
+    ref = rng.standard_normal((F, M, 2))
+    tmask = np.ones((F, N), bool)
+    rmask = np.ones((F, M), bool)
+    tmask[:, -9:] = False
+    tmask[0, 1] = False
+    rmask[:, -4:] = False
+    tmask[1] = False  # pair 1: empty test set -> cost 0
+    rmask[-1] = False  # last pair: empty ref set -> cost 0
+    return test, ref, tmask, rmask
+
+
+def test_kernel_matches_plain(cuda):
+    """Masked and dense, outer strides 1 and 6, f64 and f32, on the same
+    CUDA tensors.  f64 to rtol 1e-12 with equal argmins; f32 within the
+    argmin-certification band at each cost (last-ulp rounding and FMA
+    contraction differ between the two)."""
+    test, ref, tmask, rmask = _sets()
+    s2 = np.maximum((test ** 2).sum(-1).max(-1), (ref ** 2).sum(-1).max(-1))
+    for dtype in (torch.float64, torch.float32):
+        centers = torch.tensor([0.01, -0.02, 0.0, 0.1], dtype=dtype, device=cuda)
+        angles, valid = rs.candidate_angles(centers, 0.1, 5.0, 6.0)
+        for dense in (False, True):
+            for stride in (1, 6):
+                args = (
+                    torch.tensor(test, dtype=dtype, device=cuda),
+                    torch.tensor(ref, dtype=dtype, device=cuda),
+                    None if dense else torch.tensor(tmask, device=cuda),
+                    None if dense else torch.tensor(rmask, device=cuda),
+                    angles, valid,
+                )
+                kw = dict(dense=dense, outer_stride_test=stride,
+                          outer_stride_ref=stride)
+                launches = sweep.launches
+                got = sweep.cost_table(*args, **kw)
+                assert sweep.launches == launches + 1
+                want = sweep.cost_table_plain(*args, **kw)
+                torch.cuda.synchronize()
+                got = got.double().cpu().numpy()
+                want = want.double().cpu().numpy()
+                assert (np.isinf(got) == np.isinf(want)).all()
+                fin = np.isfinite(want)
+                if dtype == torch.float64:
+                    np.testing.assert_allclose(
+                        got[fin], want[fin], rtol=1e-12, atol=0.0
+                    )
+                    assert (got.argmin(axis=1) == want.argmin(axis=1)).all()
+                else:
+                    w = want[fin]
+                    s2f = np.broadcast_to(s2[:, None], want.shape)[fin]
+                    band = rs._TIE_C * rs._eps_eff(torch.float32) * (
+                        np.sqrt(s2f * w) + w
+                    )
+                    assert (np.abs(got[fin] - w) <= band).all()
+                if not dense:
+                    assert (got[[1, -1]][valid.cpu().numpy()[[1, -1]]] == 0).all()
+
+
+def test_kernel_refuses_what_it_cannot_take(cuda):
+    test, ref, tmask, rmask = _sets()
+    centers = torch.zeros(4, dtype=torch.float64, device=cuda)
+    angles, valid = rs.candidate_angles(centers, 1.0, 5.0, 6.0)
+    t = torch.tensor(test, device=cuda)
+    r = torch.tensor(ref, device=cuda)
+    with pytest.raises(ValueError, match="expected cuda"):
+        sweep.cost_table(t, r, torch.tensor(tmask), torch.tensor(rmask),
+                         angles, valid)
+    big = torch.zeros((1, 20000, 2), dtype=torch.float64, device=cuda)
+    a1, v1 = rs.candidate_angles(centers[:1], 1.0, 5.0, 6.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep.cost_table(big, big, None, None, a1, v1, dense=True)
+
+
+def _pullback(n_frames=12, n_points=200, seed=7):
+    rng = np.random.default_rng(seed)
+    theta = np.linspace(0.0, 2.0 * math.pi, n_points, endpoint=False)
+    rows, rot, cx, cy = [], 0.0, 4.5, 4.5
+    for f in range(n_frames):
+        rot += rng.uniform(-0.04, 0.04)
+        cx += rng.uniform(-0.02, 0.02)
+        cy += rng.uniform(-0.02, 0.02)
+        a = 2.0 + 0.2 * math.sin(f / 17.0)
+        b = 1.4 + 0.2 * math.cos(f / 23.0)
+        wobble = 0.08 * np.sin(5 * theta + f / 5.0)
+        r_x, r_y = (a + wobble) * np.cos(theta), (b + wobble) * np.sin(theta)
+        x = cx + r_x * math.cos(rot) - r_y * math.sin(rot)
+        y = cy + r_x * math.sin(rot) + r_y * math.cos(rot)
+        rows.append(np.stack(
+            [np.full(n_points, f), x, y, np.full(n_points, f * 0.2)], axis=-1
+        ))
+    return np.concatenate(rows), np.array([0, cx + 3.0, 4.5, 0.0])
+
+
+def test_main_path_on_cuda_matches_cpu(cuda):
+    """from_array_single at step 0.01 / range 6 (three ladder stages): CUDA
+    f64 equals CPU f64 (rot to 1e-12 deg, coordinates to 1e-9 mm) and goes
+    through the kernel; CUDA f32 picks the same grid angles."""
+    lumen, ref = _pullback()
+    kw = dict(step_rotation_deg=0.01, range_rotation_deg=6.0, write_obj=False)
+
+    def run(device, dtype):
+        data = mt.numpy_to_inputdata(lumen, ref, True)
+        with mt.config.use(device=device, dtype=dtype):
+            with contextlib.redirect_stdout(io.StringIO()):
+                geom, logs = mt.from_array_single(data, **kw)
+        coords = np.concatenate([f.lumen.xyz_view() for f in geom.frames])
+        return np.array(logs, dtype=float), coords
+
+    launches = sweep.launches
+    l64, c64 = run(cuda, torch.float64)
+    assert sweep.launches > launches
+    l_cpu, c_cpu = run("cpu", torch.float64)
+    np.testing.assert_allclose(l64[:, 2], l_cpu[:, 2], rtol=0.0, atol=1e-12)
+    np.testing.assert_allclose(c64, c_cpu, rtol=0.0, atol=1e-9)
+    l32, c32 = run(cuda, torch.float32)
+    np.testing.assert_array_equal(
+        np.rint(l32[:, 2] / 0.01), np.rint(l_cpu[:, 2] / 0.01)
+    )
+    np.testing.assert_array_equal(l32[:, 3:], l_cpu[:, 3:])
+    np.testing.assert_allclose(c32, c_cpu, rtol=0.0, atol=1e-4)

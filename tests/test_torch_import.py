@@ -1,0 +1,86 @@
+"""The PyTorch port stands alone: it imports without JAX and without the
+JAX package, and its config follows the documented device/dtype policy."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import pkgutil, sys
+sys.modules["jax"] = None  # any import of jax now raises
+import multimodars_torch
+for m in pkgutil.walk_packages(multimodars_torch.__path__, "multimodars_torch."):
+    __import__(m.name)
+bad = sorted(
+    n for n in sys.modules
+    if (n == "jax" and sys.modules[n] is not None)
+    or n.startswith("jax.") or n.startswith("multimodars_tpu")
+)
+assert not bad, bad
+print("ok", len([n for n in sys.modules if n.startswith("multimodars_torch")]))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+
+
+def test_port_sources_name_no_jax():
+    offenders = []
+    for path in sorted((REPO / "multimodars_torch").rglob("*")):
+        if path.suffix not in (".py", ".cu") or "_build" in path.parts:
+            continue
+        text = path.read_text()
+        if "import jax" in text or "from jax" in text or "multimodars_tpu" in text:
+            offenders.append(str(path.relative_to(REPO)))
+    assert offenders == []
+
+
+def test_config_policy():
+    from multimodars_torch.config import config, default_dtype_for, torch_dtype
+
+    # tests/conftest.py pins MMTPU_COMPUTE_DTYPE=float64 for the process
+    assert os.environ.get("MMTPU_COMPUTE_DTYPE") == "float64"
+    assert default_dtype_for(torch.device("cuda")) == torch.float64
+    assert config.device.type == ("cuda" if torch.cuda.is_available() else "cpu")
+    assert torch_dtype("float32") is torch.float32
+    assert torch_dtype(np.float64) is torch.float64
+    with pytest.raises(ValueError):
+        torch_dtype("float16")
+    saved = (config.device, config.compute_dtype)
+    with config.use(device="cpu", dtype="float32"):
+        assert config.compute_dtype is torch.float32
+        assert config.device == torch.device("cpu")
+    assert (config.device, config.compute_dtype) == saved
+
+
+def test_config_defaults_without_env(monkeypatch):
+    from multimodars_torch.config import default_dtype_for
+
+    monkeypatch.delenv("MMTPU_COMPUTE_DTYPE")
+    assert default_dtype_for(torch.device("cuda")) == torch.float32
+    assert default_dtype_for(torch.device("cpu")) == torch.float64
+
+
+def test_to_device_is_contiguous_in_dtype():
+    from multimodars_torch.config import config
+    from multimodars_torch.utils.device import to_device
+
+    a = np.zeros((4, 6, 3))[:, ::2, :2]  # a strided view
+    t = to_device(a, torch.float32)
+    assert t.is_contiguous() and t.dtype == torch.float32
+    assert t.device == config.device and tuple(t.shape) == (4, 3, 2)
