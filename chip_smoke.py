@@ -4,10 +4,12 @@
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 It builds the hand-written sweep kernel from ``multimodars_torch/csrc``,
-holds it against its plain PyTorch version at the OCT-280 shapes, drives
-the port's single-pullback main path (``from_array_single`` on a 280-frame,
-500-point pullback at step 0.01 deg / range 6 deg, the reference's headline
-protocol) and checks what comes out.  Phases:
+holds it against its plain PyTorch version at the shapes the main paths give
+it, drives the port's single-pullback path (``from_array_single`` on a
+280-frame, 500-point pullback at step 0.01 deg / range 6 deg, the
+reference's headline protocol) and its four-phase path (``from_array_full``
+on four such pullbacks at the canonical step 0.5 deg / range 90 deg) and
+checks what comes out.  Phases:
 
 1. environment: card name and power limit, torch/CUDA versions, kernel build
 2. kernel against plain on the card: masked/dense, outer strides 1 and 6,
@@ -19,11 +21,22 @@ protocol) and checks what comes out.  Phases:
    warm-ups)
 4. the port against itself across devices: ``from_file_single`` on the
    vendored ivus_rest fixture on CUDA and on the CPU plain path
+5. the four-phase path on the card: the kernel against plain at the
+   between tables' masked shapes (and one f64 width above 600 points, past
+   the default shared-memory limit) and at the full path's dense lower
+   bound; ``from_array_full`` on four OCT-280 pullbacks (rest/stress x
+   diastole/systole) in f32 and f64, dense and masked launches counted, every
+   within pair and the four between winners on the same grid index,
+   coordinates within 1e-4 mm, the between winners against the exact host
+   f64 ladder, wall clock (median of 5 after 2 warm-ups) and mean spans;
+   ``from_file_full`` on ivus_rest + ivus_stress on CUDA and on the CPU
+   plain path, identical in f64
 
 Every phase prints its lines; any failure exits non-zero.  The line before
 the last is the kernel summary JSON, the last line is
 ``{"ok": true, "device": {...}}``.  ``--only kernel`` stops after phase 2;
-``--profile`` adds a torch.profiler breakdown of one steady main-path run.
+``--profile`` adds a torch.profiler breakdown of one steady run of each
+main path.
 """
 
 from __future__ import annotations
@@ -46,6 +59,15 @@ MAIN_ARGS = dict(
     image_center=(4.5, 4.5), radius=0.5, n_points=20, write_obj=False,
     smooth=False, bruteforce=False,
 )
+# the four-phase path at the reference's canonical defaults
+# (functions.rs:144-167), OBJ export off as in the reference's benchmark
+FULL_STEP, FULL_RANGE = 0.5, 90.0
+FULL_ARGS = dict(
+    step_rotation_deg=FULL_STEP, range_rotation_deg=FULL_RANGE,
+    sample_size=500, smooth=True, postprocessing=True, write_obj=False,
+)
+FULL_PHASES = (("rest_dia", 7), ("rest_sys", 8), ("stress_dia", 9),
+               ("stress_sys", 10))
 
 
 class SmokeFailure(Exception):
@@ -264,10 +286,7 @@ def phase_main_path(torch, sweep, mt, profile=False):
                 for k in ("flagged", "repaired", "changed", "host_exact")}
 
     # the counted run: every launch count set to 0 just before it
-    for k in argmin_repair.stats:
-        argmin_repair.stats[k] = 0
-    sweep.launches = 0
-    trace.reset()
+    reset_counters(sweep, argmin_repair, trace)
     t0 = time.perf_counter()
     geom32, logs32 = run()
     first_s = time.perf_counter() - t0
@@ -326,14 +345,24 @@ def phase_main_path(torch, sweep, mt, profile=False):
         f"{k} {v[0] / v[1]:.4f}"
         for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
     if profile:
-        profile_main_path(torch, run)
+        profile_main_path(torch, run, "oct280_profile.json")
     return launches, med
 
 
-def profile_main_path(torch, run):
+def reset_counters(sweep, argmin_repair, trace):
+    """Set every launch and repair count to 0 and clear the spans: done just
+    before a main path's counted run."""
+    for k in argmin_repair.stats:
+        argmin_repair.stats[k] = 0
+    sweep.launches = 0
+    sweep.masked_launches = 0
+    trace.reset()
+
+
+def profile_main_path(torch, run, trace_name):
     """One steady f32 run under torch.profiler: device time by kernel and
-    the device's busy share of the wall clock.  The trace goes to
-    chiprun_out/oct280_profile.json."""
+    the device's busy share of the wall clock.  The trace is written under
+    ``trace_name`` in the git-ignored output directory."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -358,7 +387,7 @@ def profile_main_path(torch, run):
         say("profile", f"{dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "oct280_profile.json"))
+    prof.export_chrome_trace(str(out / trace_name))
 
 
 # ---------------------------------------------------------------------------
@@ -395,13 +424,309 @@ def phase_cross_device(torch, mt):
 
 
 # ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+def full_inputs(mt):
+    """Four OCT-280 pullbacks from seeds: rest and stress, diastole and
+    systole."""
+    from bench import synthetic_oct_pullback
+
+    out = []
+    for label, seed in FULL_PHASES:
+        lumen, ref = synthetic_oct_pullback(OCT_FRAMES, OCT_POINTS, seed)
+        out.append(mt.numpy_to_inputdata(lumen, ref, label.endswith("dia"),
+                                         label=label))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_between(align_between):
+    """Record what each between stage of a run returns: its pairs, the
+    winning angle per slot and the clouds it searched."""
+    seen = []
+    stage = align_between.between_stage
+
+    def spy(*args, **kwargs):
+        out = stage(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    align_between.between_stage = spy
+    try:
+        yield seen
+    finally:
+        align_between.between_stage = stage
+
+
+def pair_coords(pairs):
+    import numpy as np
+
+    rows = []
+    for pair in pairs:
+        for geom in (pair.geom_a, pair.geom_b):
+            for frame in geom.frames:
+                rows.append(frame.lumen.xyz_view())
+                for kind in sorted(frame.extras):
+                    rows.append(frame.extras[kind].xyz_view())
+    return np.concatenate(rows)
+
+
+def between_tables(torch, rs, clouds, dtype, stride):
+    """The between search's cost-table arguments for ``clouds``, packed by
+    the main path's own align_between.pack_between, over the full-path
+    grid."""
+    from multimodars_torch.pipelines.align_between import pack_between
+
+    dev = torch.device("cuda", 0)
+    test, ref, tmask, rmask = pack_between(clouds)
+    centers = torch.zeros(len(clouds), dtype=dtype, device=dev)
+    angles, valid = rs.candidate_angles(centers, FULL_STEP, FULL_RANGE, FULL_RANGE)
+    args = (torch.as_tensor(test, dtype=dtype, device=dev),
+            torch.as_tensor(ref, dtype=dtype, device=dev),
+            torch.as_tensor(tmask, device=dev), torch.as_tensor(rmask, device=dev),
+            angles, valid)
+    return args, dict(dense=False, outer_stride_test=stride, outer_stride_ref=stride)
+
+
+def check_table(torch, sweep, rs, name, args, kw, plain_reps):
+    """Kernel against plain on the same CUDA tensors; returns (max abs err,
+    kernel ms, plain ms)."""
+    import numpy as np
+
+    k_out = sweep.cost_table(*args, **kw).double().cpu().numpy()
+    p_out = sweep.cost_table_plain(*args, **kw).double().cpu().numpy()
+    ms = cuda_ms(torch, lambda: sweep.cost_table(*args, **kw), 10)
+    plain_ms = cuda_ms(torch, lambda: sweep.cost_table_plain(*args, **kw), plain_reps)
+    check((np.isinf(k_out) == np.isinf(p_out)).all(), f"{name}: inf slots differ")
+    fin = np.isfinite(p_out)
+    diff = np.abs(k_out[fin] - p_out[fin])
+    err = float(diff.max())
+    rel = float((diff / np.maximum(np.abs(p_out[fin]), 1e-300)).max())
+    argmin_eq = bool((k_out.argmin(axis=1) == p_out.argmin(axis=1)).all())
+    test = args[0]
+    if test.dtype == torch.float64:
+        check(rel <= 1e-12 and argmin_eq,
+              f"{name}: rel err {rel:.3e}, argmin equal {argmin_eq}")
+    else:
+        s2 = rs._point_scale2(args[0], args[1]).double().cpu().numpy()
+        c = np.maximum(p_out[fin], 0.0)
+        band = rs._TIE_C * rs._eps_eff(torch.float32) * (
+            np.sqrt(np.broadcast_to(s2[:, None], p_out.shape)[fin] * c) + c)
+        check((diff <= band).all(), f"{name}: kernel differs from plain by more than the band")
+    F, N, M, K = sweep.check_inputs(*args, kw["dense"], kw["outer_stride_test"],
+                                    kw["outer_stride_ref"])
+    say("full", f"{name} [F {F}, N {N}, M {M}, K {K}]: kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, max |kernel-plain| {err:.3e} "
+                f"(rel {rel:.3e}), argmin equal {argmin_eq}")
+    return err, ms, plain_ms
+
+
+def phase_full_kernel(torch, sweep, rs, mt, clouds):
+    """The kernel against plain at the four-phase path's shapes: the masked
+    between tables on the recorded stage-1 clouds, the same with the slots'
+    widths made unequal, one f64 table of 640 points (past the 48 KB
+    default shared-memory limit), and the dense within lower bound over
+    the 4 x 279 pairs."""
+    import numpy as np
+
+    from multimodars_torch._processing import _to_inputdata
+    from multimodars_torch.io.build import build_any_from_inputdata
+    from multimodars_torch.pipelines.align_within import _validate_and_pack
+
+    uneven = [(clouds[0][0], clouds[0][1][:530]), (clouds[1][0][:520], clouds[1][1])]
+    rng = np.random.default_rng(5)
+    ring = np.linspace(0.0, 2 * math.pi, 640, endpoint=False)
+    wide = [(np.stack([2.0 * np.cos(ring), 1.4 * np.sin(ring)], -1)
+             + rng.normal(0.0, 0.01, (640, 2)),
+             np.stack([2.0 * np.cos(ring + 0.3), 1.4 * np.sin(ring + 0.3)], -1))
+            for _ in range(2)]
+    err = 0.0
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        for stride in (6, 1):
+            for name, cl in (("between", clouds), ("between uneven", uneven)):
+                args, kw = between_tables(torch, rs, cl, dtype, stride)
+                e, _, _ = check_table(torch, sweep, rs,
+                                      f"{tag} masked {name} stride {stride}",
+                                      args, kw, 5)
+                err = max(err, e)
+    smem = sweep._library().mm_sweep_smem_bytes(640, 640, 8, 1)
+    check(smem > 48 * 1024, f"the 640-point f64 masked table needs only {smem} B")
+    args, kw = between_tables(torch, rs, wide, torch.float64, 1)
+    e, _, _ = check_table(torch, sweep, rs,
+                          f"f64 masked 640 points ({smem} B shared)", args, kw, 3)
+    err = max(err, e)
+
+    # the dense within lower bound of the full path
+    sets = []
+    for data in full_inputs(mt):
+        tg = build_any_from_inputdata(_to_inputdata(data), None, data.label,
+                                      data.diastole, (4.5, 4.5), 0.5, 20,
+                                      verbose=False)
+        _obj, _tg, pts, mask = _validate_and_pack(tg, 500)
+        check(mask is None, "OCT-280 sample sets are not dense")
+        sets.append(pts)
+    dev = torch.device("cuda", 0)
+    test = torch.as_tensor(np.concatenate([p[1:] for p in sets]),
+                           dtype=torch.float32, device=dev).contiguous()
+    ref = torch.as_tensor(np.concatenate([p[:-1] for p in sets]),
+                          dtype=torch.float32, device=dev).contiguous()
+    centers = torch.zeros(test.shape[0], dtype=torch.float32, device=dev)
+    angles, valid = rs.candidate_angles(centers, FULL_STEP, FULL_RANGE, FULL_RANGE)
+    e, _, _ = check_table(torch, sweep, rs, "f32 dense within stride 6",
+                          (test, ref, None, None, angles, valid),
+                          dict(dense=True, outer_stride_test=6, outer_stride_ref=6), 1)
+    return max(err, e)
+
+
+def phase_full_path(torch, sweep, mt, profile=False):
+    import numpy as np
+
+    from multimodars_torch.ops import argmin_repair
+    from multimodars_torch.ops.argmin_repair import exact_ladder
+    from multimodars_torch.pipelines import align_between
+    from multimodars_torch.utils import trace
+
+    datas = full_inputs(mt)
+    check(mt.config.compute_dtype == torch.float32,
+          f"compute dtype {mt.config.compute_dtype}")
+
+    def run():
+        out = quiet(mt.from_array_full, *datas, **FULL_ARGS)
+        torch.cuda.synchronize()
+        return out
+
+    def counters():
+        return {k: argmin_repair.stats.get(k, 0)
+                for k in ("flagged", "repaired", "changed", "host_exact")}
+
+    # the counted run: every launch count set to 0 just before it
+    reset_counters(sweep, argmin_repair, trace)
+    with recorded_between(align_between) as stages32:
+        t0 = time.perf_counter()
+        out32 = run()
+        first_s = time.perf_counter() - t0
+    launches, masked = sweep.launches, sweep.masked_launches
+    stats32 = counters()
+    say("full", f"from_array_full 4 x OCT-280 f32: {first_s:.3f} s (first run), "
+                f"sweep launches {launches} ({launches - masked} dense, "
+                f"{masked} masked), repair counters {stats32}")
+    check(launches - masked > 0, "the full path launched no dense table")
+    check(masked > 0, "the full path launched no masked table")
+
+    pairs32, logs32 = out32[:4], out32[4]
+    check([p.label for p in pairs32] == [
+        "rest_dia - rest_sys", "stress_dia - stress_sys",
+        "rest_dia - stress_dia", "rest_sys - stress_sys"],
+        f"pair labels {[p.label for p in pairs32]}")
+    check([len(l) for l in logs32] == [OCT_FRAMES - 1] * 4,
+          f"log lengths {[len(l) for l in logs32]}")
+    for pair in pairs32:
+        n_a, n_b = len(pair.geom_a.frames), len(pair.geom_b.frames)
+        check(n_a == n_b and 0 < n_a <= OCT_FRAMES,
+              f"{pair.label}: {n_a} and {n_b} frames after postprocessing")
+    c32 = pair_coords(pairs32)
+    check(np.isfinite(c32).all(), "output coordinates not finite")
+    check(len(stages32) == 2, f"{len(stages32)} between stages")
+    win32 = np.concatenate([st[1] for st in stages32])
+    clouds32 = [c for st in stages32 for c in st[2]]
+
+    for k in argmin_repair.stats:
+        argmin_repair.stats[k] = 0
+    with mt.config.use(dtype=torch.float64), recorded_between(align_between) as stages64:
+        out64 = run()
+    stats64 = counters()
+    win64 = np.concatenate([st[1] for st in stages64])
+
+    def grid_index(rad):
+        return np.rint((np.degrees(rad) + FULL_RANGE) / FULL_STEP).astype(np.int64)
+
+    same_within = all(
+        np.array_equal(np.rint(np.array([l[2] for l in a]) / FULL_STEP),
+                       np.rint(np.array([l[2] for l in b]) / FULL_STEP))
+        for a, b in zip(logs32, out64[4]))
+    d_rot = max(float(np.abs(np.array([l[2] for l in a]) - np.array([l[2] for l in b])).max())
+                for a, b in zip(logs32, out64[4]))
+    same_between = bool(np.array_equal(grid_index(win32), grid_index(win64)))
+    frames_equal = [len(p.geom_a.frames) for p in pairs32] == [
+        len(p.geom_a.frames) for p in out64[:4]]
+    say("full", f"f64 run: repair counters {stats64}; f32 vs f64: same grid angle "
+                f"in every within pair {same_within} (max |rot diff| {d_rot:.3e} deg); "
+                f"between winners (deg) f32 {np.degrees(win32).round(6).tolist()}, "
+                f"f64 {np.degrees(win64).round(6).tolist()}, grid indices "
+                f"{grid_index(win32).tolist()} vs {grid_index(win64).tolist()}, "
+                f"same {same_between}; frame counts equal {frames_equal}")
+    check(same_within, "f32 and f64 within logs land on different grid angles")
+    check(same_between, "f32 and f64 between winners land on different grid indices")
+    check(frames_equal, "f32 and f64 runs kept different frame counts")
+    d_xyz = float(np.abs(c32 - pair_coords(out64[:4])).max())
+    say("full", f"f32 vs f64 max |coord diff| over the four pairs {d_xyz:.3e} mm")
+    check(d_xyz <= 1e-4, f"f32 vs f64 coordinates differ by {d_xyz} mm")
+
+    # the four between winners against the exact host f64 ladder on the
+    # clouds the f32 run searched
+    t0 = time.perf_counter()
+    for k, ((ref_xy, tgt_xy), w) in enumerate(zip(clouds32, win32)):
+        pivot = ref_xy.mean(axis=0)
+        want = exact_ladder(tgt_xy - pivot, ref_xy - pivot, FULL_STEP, FULL_RANGE, False)
+        check(abs(math.degrees(want - w)) < 1e-4,
+              f"between slot {k}: port {math.degrees(w)} deg, exact host ladder "
+              f"{math.degrees(want)} deg")
+    say("full", f"exact host f64 ladder agrees on the four between winners "
+                f"(clouds {[len(c[0]) for c in clouds32]} x {[len(c[1]) for c in clouds32]} "
+                f"points, {time.perf_counter() - t0:.1f} s)")
+
+    for _ in range(2):
+        run()
+    trace.reset()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[2]
+    say("full", f"wall clock f32, median of 5 after 2 warm-ups: {med:.4f} s "
+                f"(runs {', '.join(f'{t:.4f}' for t in times)})")
+    say("full", "spans per run, mean of those runs (s, calls): " + ", ".join(
+        f"{k} {v[0] / 5:.4f} (x{v[1] // 5})"
+        for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
+    if profile:
+        profile_main_path(torch, run, "full_profile.json")
+    return launches, clouds32
+
+
+def phase_full_cross_device(torch, mt):
+    import numpy as np
+
+    fixtures = REPO / "tests" / "data" / "fixtures"
+    paths = [str(fixtures / "ivus_rest"), str(fixtures / "ivus_stress")]
+    for p in paths:
+        check(Path(p).is_dir(), f"fixture {p} missing")
+
+    def run(device):
+        with mt.config.use(device=device, dtype=torch.float64):
+            return quiet(mt.from_file_full, *paths, write_obj=False)
+
+    t0 = time.perf_counter()
+    cuda = run("cuda")
+    cpu = run("cpu")
+    d_rot = max(float(np.abs(np.array(a)[:, 2] - np.array(b)[:, 2]).max())
+                for a, b in zip(cuda[4], cpu[4]))
+    d_xyz = float(np.abs(pair_coords(cuda[:4]) - pair_coords(cpu[:4])).max())
+    say("cross", f"ivus_rest + ivus_stress from_file_full: CUDA f64 vs CPU f64 max "
+                 f"|diff| rot {d_rot:.3e} deg, coords {d_xyz:.3e} mm "
+                 f"({time.perf_counter() - t0:.1f} s)")
+    check(d_rot < 1e-12 and d_xyz < 1e-9, "CUDA f64 and CPU f64 full runs disagree")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernel"], default=None,
                     help="stop after the kernel phase")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one steady main-path run (torch.profiler)")
+                    help="profile one steady run of each main path (torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -419,20 +744,20 @@ def main() -> int:
     from multimodars_torch.ops import rotation_search as rs
     from multimodars_torch.ops import sweep
 
-    phase = "env"
-    try:
-        phase_environment(torch, sweep)
-        phase = "kernel"
-        kres = phase_kernel(torch, sweep, rs)
-        launches = None
-        if args.only != "kernel":
-            phase = "main"
-            launches, _ = phase_main_path(torch, sweep, mt, args.profile)
-            phase = "cross"
-            phase_cross_device(torch, mt)
-    except SmokeFailure as e:
-        print(f"FAIL [{phase}]: {e}", flush=True)
-        return 1
+    # a failed check raises SmokeFailure out of main(): the traceback names
+    # the phase and the process exits non-zero
+    phase_environment(torch, sweep)
+    kres = phase_kernel(torch, sweep, rs)
+    launches = None
+    if args.only != "kernel":
+        launches, _ = phase_main_path(torch, sweep, mt, args.profile)
+        phase_cross_device(torch, mt)
+        full_launches, clouds = phase_full_path(torch, sweep, mt, args.profile)
+        launches += full_launches
+        kres["max_abs_err"] = max(
+            kres["max_abs_err"], phase_full_kernel(torch, sweep, rs, mt, clouds[:2])
+        )
+        phase_full_cross_device(torch, mt)
     for name in sorted(sys.modules):
         if name == "jax" or name.startswith(("jax.", "multimodars_tpu")):
             print(f"FAIL: {name} was imported", flush=True)

@@ -60,6 +60,156 @@ def _to_inputdata(py_in) -> InputData:
     return InputData.from_py_input_data(py_in)
 
 
+def from_file_full(
+    input_path_ab: str,
+    input_path_cd: str,
+    labels: Optional[List[str]] = None,
+    step_rotation_deg: float = 0.5,
+    range_rotation_deg: float = 90.0,
+    sample_size: int = 500,
+    image_center: Tuple[float, float] = (4.5, 4.5),
+    radius: float = 0.5,
+    n_points: int = 20,
+    write_obj: bool = True,
+    watertight: bool = True,
+    contour_types=None,
+    output_path_ab: str = "output/rest",
+    output_path_cd: str = "output/stress",
+    output_path_ac: str = "output/diastole",
+    output_path_bd: str = "output/systole",
+    interpolation_steps: int = 0,
+    bruteforce: bool = False,
+    smooth: bool = True,
+    postprocessing: bool = True,
+):
+    """Process four geometries (rest/stress x dia/sys) from two CSV folders.
+
+    Returns (rest, stress, diastole, systole, (logs_a, logs_b, logs_c,
+    logs_d)).  See the reference docstring (functions.rs:42-167) for the
+    full parameter description; defaults are identical.
+    """
+    ab, cd, ac, bd, la, lb, lc, ld = _entry.full_processing(
+        labels or [],
+        image_center,
+        radius,
+        n_points,
+        input_path_a=input_path_ab,
+        input_path_b=input_path_cd,
+        input_data=None,
+        write_obj=write_obj,
+        interpolation_steps=interpolation_steps,
+        contour_types=_type_names(contour_types),
+        watertight=watertight,
+        output_path_a=output_path_ab,
+        output_path_b=output_path_cd,
+        output_path_c=output_path_ac,
+        output_path_d=output_path_bd,
+        step_deg=step_rotation_deg,
+        range_deg=range_rotation_deg,
+        smooth=smooth,
+        bruteforce=bruteforce,
+        sample_size=sample_size,
+        postprocessing=postprocessing,
+    )
+    return ab, cd, ac, bd, (
+        logs_to_tuples(la),
+        logs_to_tuples(lb),
+        logs_to_tuples(lc),
+        logs_to_tuples(ld),
+    )
+
+
+def from_file_doublepair(
+    input_path_ab: str,
+    input_path_cd: str,
+    labels: Optional[List[str]] = None,
+    step_rotation_deg: float = 0.5,
+    range_rotation_deg: float = 90.0,
+    sample_size: int = 500,
+    image_center: Tuple[float, float] = (4.5, 4.5),
+    radius: float = 0.5,
+    n_points: int = 20,
+    write_obj: bool = True,
+    watertight: bool = True,
+    contour_types=None,
+    output_path_ab: str = "output/rest",
+    output_path_cd: str = "output/stress",
+    interpolation_steps: int = 0,
+    bruteforce: bool = False,
+    smooth: bool = True,
+    postprocessing: bool = True,
+):
+    """Process two independent dia/sys pairs (rest and stress)."""
+    ab, cd, la, lb, lc, ld = _entry.double_pair_processing(
+        labels or [],
+        image_center,
+        radius,
+        n_points,
+        input_path_a=input_path_ab,
+        input_path_b=input_path_cd,
+        input_data=None,
+        write_obj=write_obj,
+        interpolation_steps=interpolation_steps,
+        contour_types=_type_names(contour_types),
+        watertight=watertight,
+        output_path_a=output_path_ab,
+        output_path_b=output_path_cd,
+        step_deg=step_rotation_deg,
+        range_deg=range_rotation_deg,
+        smooth=smooth,
+        bruteforce=bruteforce,
+        sample_size=sample_size,
+        postprocessing=postprocessing,
+    )
+    return ab, cd, (
+        logs_to_tuples(la),
+        logs_to_tuples(lb),
+        logs_to_tuples(lc),
+        logs_to_tuples(ld),
+    )
+
+
+def from_file_singlepair(
+    input_path: str,
+    labels: Optional[List[str]] = None,
+    step_rotation_deg: float = 0.5,
+    range_rotation_deg: float = 90.0,
+    sample_size: int = 500,
+    image_center: Tuple[float, float] = (4.5, 4.5),
+    radius: float = 0.5,
+    n_points: int = 20,
+    write_obj: bool = True,
+    watertight: bool = True,
+    contour_types=None,
+    output_path: str = "output/singlepair",
+    interpolation_steps: int = 0,
+    bruteforce: bool = False,
+    smooth: bool = True,
+    postprocessing: bool = True,
+):
+    """Process one dia/sys pair from a single CSV folder."""
+    pair, la, lb = _entry.pair_processing(
+        labels or [],
+        image_center,
+        radius,
+        n_points,
+        input_path=input_path,
+        input_data=None,
+        write_obj=write_obj,
+        interpolation_steps=interpolation_steps,
+        contour_types=_type_names(contour_types),
+        watertight=watertight,
+        output_path=output_path,
+        step_deg=step_rotation_deg,
+        range_deg=range_rotation_deg,
+        smooth=smooth,
+        bruteforce=bruteforce,
+        sample_size=sample_size,
+        postprocessing=postprocessing,
+    )
+    return pair, (logs_to_tuples(la), logs_to_tuples(lb))
+
+
 def from_file_single(
     input_path: str,
     labels: Optional[List[str]] = None,
@@ -103,6 +253,158 @@ def from_file_single(
         sample_size=sample_size,
     )
     return geom, logs_to_tuples(logs)
+
+
+def from_array_full(
+    input_data_a: PyInputData,
+    input_data_b: PyInputData,
+    input_data_c: PyInputData,
+    input_data_d: PyInputData,
+    step_rotation_deg: float = 0.5,
+    range_rotation_deg: float = 90.0,
+    sample_size: int = 500,
+    image_center: Tuple[float, float] = (4.5, 4.5),
+    radius: float = 0.5,
+    n_points: int = 20,
+    write_obj: bool = True,
+    watertight: bool = True,
+    contour_types=None,
+    output_path_ab: str = "output/rest",
+    output_path_cd: str = "output/stress",
+    output_path_ac: str = "output/diastole",
+    output_path_bd: str = "output/systole",
+    interpolation_steps: int = 0,
+    bruteforce: bool = False,
+    smooth: bool = True,
+    postprocessing: bool = True,
+):
+    """Four-geometry pipeline from in-memory PyInputData bundles."""
+    ab, cd, ac, bd, la, lb, lc, ld = _entry.full_processing(
+        [],
+        image_center,
+        radius,
+        n_points,
+        input_data=[
+            _to_inputdata(input_data_a),
+            _to_inputdata(input_data_b),
+            _to_inputdata(input_data_c),
+            _to_inputdata(input_data_d),
+        ],
+        write_obj=write_obj,
+        interpolation_steps=interpolation_steps,
+        contour_types=_type_names(contour_types),
+        watertight=watertight,
+        output_path_a=output_path_ab,
+        output_path_b=output_path_cd,
+        output_path_c=output_path_ac,
+        output_path_d=output_path_bd,
+        step_deg=step_rotation_deg,
+        range_deg=range_rotation_deg,
+        smooth=smooth,
+        bruteforce=bruteforce,
+        sample_size=sample_size,
+        postprocessing=postprocessing,
+    )
+    return ab, cd, ac, bd, (
+        logs_to_tuples(la),
+        logs_to_tuples(lb),
+        logs_to_tuples(lc),
+        logs_to_tuples(ld),
+    )
+
+
+def from_array_doublepair(
+    input_data_a: PyInputData,
+    input_data_b: PyInputData,
+    input_data_c: PyInputData,
+    input_data_d: PyInputData,
+    step_rotation_deg: float = 0.5,
+    range_rotation_deg: float = 90.0,
+    sample_size: int = 500,
+    image_center: Tuple[float, float] = (4.5, 4.5),
+    radius: float = 0.5,
+    n_points: int = 20,
+    write_obj: bool = True,
+    watertight: bool = True,
+    contour_types=None,
+    output_path_ab: str = "output/rest",
+    output_path_cd: str = "output/stress",
+    interpolation_steps: int = 0,
+    bruteforce: bool = False,
+    smooth: bool = True,
+    postprocessing: bool = True,
+):
+    """Two independent pairs from in-memory PyInputData bundles."""
+    ab, cd, la, lb, lc, ld = _entry.double_pair_processing(
+        [],
+        image_center,
+        radius,
+        n_points,
+        input_data=[
+            _to_inputdata(input_data_a),
+            _to_inputdata(input_data_b),
+            _to_inputdata(input_data_c),
+            _to_inputdata(input_data_d),
+        ],
+        write_obj=write_obj,
+        interpolation_steps=interpolation_steps,
+        contour_types=_type_names(contour_types),
+        watertight=watertight,
+        output_path_a=output_path_ab,
+        output_path_b=output_path_cd,
+        step_deg=step_rotation_deg,
+        range_deg=range_rotation_deg,
+        smooth=smooth,
+        bruteforce=bruteforce,
+        sample_size=sample_size,
+        postprocessing=postprocessing,
+    )
+    return ab, cd, (
+        logs_to_tuples(la),
+        logs_to_tuples(lb),
+        logs_to_tuples(lc),
+        logs_to_tuples(ld),
+    )
+
+
+def from_array_singlepair(
+    input_data_a: PyInputData,
+    input_data_b: PyInputData,
+    step_rotation_deg: float = 0.5,
+    range_rotation_deg: float = 90.0,
+    sample_size: int = 500,
+    image_center: Tuple[float, float] = (4.5, 4.5),
+    radius: float = 0.5,
+    n_points: int = 20,
+    write_obj: bool = True,
+    watertight: bool = True,
+    contour_types=None,
+    output_path: str = "output/singlepair",
+    interpolation_steps: int = 0,
+    bruteforce: bool = False,
+    smooth: bool = True,
+    postprocessing: bool = True,
+):
+    """One pair from in-memory PyInputData bundles."""
+    pair, la, lb = _entry.pair_processing(
+        [],
+        image_center,
+        radius,
+        n_points,
+        input_data=[_to_inputdata(input_data_a), _to_inputdata(input_data_b)],
+        write_obj=write_obj,
+        interpolation_steps=interpolation_steps,
+        contour_types=_type_names(contour_types),
+        watertight=watertight,
+        output_path=output_path,
+        step_deg=step_rotation_deg,
+        range_deg=range_rotation_deg,
+        smooth=smooth,
+        bruteforce=bruteforce,
+        sample_size=sample_size,
+        postprocessing=postprocessing,
+    )
+    return pair, (logs_to_tuples(la), logs_to_tuples(lb))
 
 
 def from_array_single(

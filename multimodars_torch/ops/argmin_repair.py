@@ -154,6 +154,37 @@ def split_chain_packed(
     )
 
 
+def center_clouds(clouds: List[Tuple[np.ndarray, np.ndarray]]):
+    """Between slots as search sets: each (reference_xy, target_xy) cloud
+    pair centred on its reference cloud's mean, the search's pivot.
+    Returns ``(test sets, ref sets)`` in f64."""
+    tests, refs = [], []
+    for reference_xy, target_xy in clouds:
+        pivot = reference_xy.mean(axis=0)
+        tests.append(np.asarray(target_xy - pivot, np.float64))
+        refs.append(np.asarray(reference_xy - pivot, np.float64))
+    return tests, refs
+
+
+def pack_sets(test_sets: List[np.ndarray], ref_sets: List[np.ndarray]):
+    """Pad point sets into one masked batch: ``(test [T, N, 2],
+    ref [T, M, 2], test mask [T, N], ref mask [T, M])`` in f64, N and M the
+    widest test and reference sets."""
+    T = len(test_sets)
+    N = max(len(t) for t in test_sets)
+    M = max(len(r) for r in ref_sets)
+    test = np.zeros((T, N, 2))
+    ref = np.zeros((T, M, 2))
+    tmask = np.zeros((T, N), dtype=bool)
+    rmask = np.zeros((T, M), dtype=bool)
+    for k, (t, r) in enumerate(zip(test_sets, ref_sets)):
+        test[k, : len(t)] = t
+        ref[k, : len(r)] = r
+        tmask[k, : len(t)] = True
+        rmask[k, : len(r)] = True
+    return test, ref, tmask, rmask
+
+
 def _device_f64_retier(
     test_sets: List[np.ndarray],
     ref_sets: List[np.ndarray],
@@ -168,17 +199,7 @@ def _device_f64_retier(
     original sweep already ran in f64 (a re-run adds nothing)."""
     if config.compute_dtype == torch.float64:
         return None
-    T = len(test_sets)
-    S = max(max(len(t) for t in test_sets), max(len(r) for r in ref_sets))
-    test = np.zeros((T, S, 2))
-    ref = np.zeros((T, S, 2))
-    tmask = np.zeros((T, S), dtype=bool)
-    rmask = np.zeros((T, S), dtype=bool)
-    for k, (t, r) in enumerate(zip(test_sets, ref_sets)):
-        test[k, : len(t)] = t
-        ref[k, : len(r)] = r
-        tmask[k, : len(t)] = True
-        rmask[k, : len(r)] = True
+    test, ref, tmask, rmask = pack_sets(test_sets, ref_sets)
     flat = multires_rotation_search_packed(
         to_device(test, torch.float64),
         to_device(ref, torch.float64),
@@ -248,3 +269,51 @@ def repair_chain_deltas(
             )
         delta[i] = exact
     return delta
+
+
+def repair_between(
+    rotations: np.ndarray,
+    ties: np.ndarray,
+    clouds: List[Tuple[np.ndarray, np.ndarray]],
+    step_deg: float,
+    range_deg: float,
+    bruteforce: bool,
+) -> np.ndarray:
+    """Re-decide flagged between-geometry searches: the f64 re-search on
+    the compute device first, exact host f64 for slots still tied.
+
+    ``clouds``: [(reference_xy, target_xy)] raw (uncentered) f64 clouds per
+    slot, centred by :func:`center_clouds` as the between search centres
+    them."""
+    flagged = np.nonzero(ties)[0]
+    if len(flagged) == 0:
+        return rotations
+    stats["flagged"] += len(flagged)
+    if not certify_enabled():
+        return rotations
+    rotations = np.array(rotations, dtype=np.float64, copy=True)
+    tests, refs = center_clouds([clouds[k] for k in flagged])
+    tier2 = _device_f64_retier(tests, refs, step_deg, range_deg, bruteforce)
+    host_idx = range(len(flagged))
+    if tier2 is not None:
+        best64, tie64 = tier2
+        for j, k in enumerate(flagged):
+            if not tie64[j]:
+                stats["repaired"] += 1
+                if best64[j] != rotations[k]:
+                    stats["changed"] += 1
+                rotations[k] = best64[j]
+        host_idx = [j for j in range(len(flagged)) if tie64[j]]
+    for j in host_idx:
+        k = flagged[j]
+        exact = exact_ladder(tests[j], refs[j], step_deg, range_deg, bruteforce)
+        stats["repaired"] += 1
+        stats["host_exact"] = stats.get("host_exact", 0) + 1
+        if exact != rotations[k]:
+            stats["changed"] += 1
+            _note(
+                f"between slot {k}: {math.degrees(rotations[k]):+.4f} deg "
+                f"-> {math.degrees(exact):+.4f} deg (exact f64)"
+            )
+        rotations[k] = exact
+    return rotations

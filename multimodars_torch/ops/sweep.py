@@ -18,7 +18,8 @@ give the lower bound of ``rotation_search._lb_cost_table``.
 to :func:`cost_table_plain`, a CUDA tensor to the kernel.  The kernel is
 compiled with ``nvcc`` for ``sm_90a`` at its first use, from the source in
 this package, into ``_build/`` beside it, and loaded with ``ctypes``.
-``launches`` counts the kernel launches of this process.
+``launches`` counts the kernel launches of this process, ``masked_launches``
+those of them on masked tables.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from .hausdorff import directed_sq, hausdorff_sq_dense, hausdorff_sq_masked
 
 #: kernel launches made by :func:`cost_table` in this process
 launches = 0
+#: the part of ``launches`` on masked tables (the rest are dense)
+masked_launches = 0
 #: seconds the nvcc build took in this process (None: no build ran)
 build_seconds: Optional[float] = None
 #: nvcc's output of that build (register and shared-memory use per kernel)
@@ -219,7 +222,7 @@ def _cost_table_cuda(
     test, ref, test_mask, ref_mask, angles, angles_valid, dense,
     outer_stride_test, outer_stride_ref,
 ):
-    global launches
+    global launches, masked_launches
     F, N, M, K = check_inputs(
         test, ref, test_mask, ref_mask, angles, angles_valid, dense,
         outer_stride_test, outer_stride_ref,
@@ -252,6 +255,7 @@ def _cost_table_cuda(
         msg = lib.mm_sweep_error_string(err).decode()
         raise RuntimeError(f"sweep_cost kernel launch failed: {msg} ({err})")
     launches += 1
+    masked_launches += int(not dense)
     return out
 
 

@@ -35,13 +35,19 @@ from ..models.frame import PyFrame
 from ..models.geometry import PyGeometry
 from ..models.point import PyContourPoint
 from ..models.tensor import TensorGeometry, geometry_to_tensor
-from ..ops.argmin_repair import repair_chain_deltas, split_chain_packed
-from ..ops.rotation_search import chain_rotation_search
+from ..ops.argmin_repair import (
+    repair_chain_deltas,
+    split_chain_packed,
+    split_packed,
+)
+from ..ops.rotation_search import (
+    chain_rotation_search,
+    multires_rotation_search_packed,
+)
 from ..utils.device import to_device
 from ..utils.logs import AlignLog, dump_table
 from ..utils.trace import span, trace
 from . import wall
-
 
 
 # ---------------------------------------------------------------------------
@@ -727,6 +733,80 @@ def assign_aortic(geometry: PyGeometry) -> PyGeometry:
         flags[:half] = False
         flags[half:] = True
     return out
+
+
+# ---------------------------------------------------------------------------
+# main entries
+# ---------------------------------------------------------------------------
+
+@trace("align_within.batch")
+def align_frames_in_geometries(
+    geometries: List[PyGeometry],
+    step_deg: float,
+    range_deg: float,
+    smooth: bool,
+    bruteforce: bool,
+    sample_size: int,
+    verbose: bool = True,
+) -> List[Tuple[PyGeometry, List[AlignLog], bool]]:
+    """Align several pullbacks with one batched rotation search.
+
+    Where the reference spawns one thread per geometry (entry.rs:140-203),
+    every geometry's frame pairs are concatenated along the batch axis and
+    searched together (dense tables when every set is valid at one width,
+    masked otherwise); each geometry's flagged pairs are then repaired and
+    its host finish runs on its own.  Returns (geometry, logs, anomalous)
+    per input, in input order."""
+    packed = [_validate_and_pack(g, sample_size) for g in geometries]
+    S = max(pts.shape[1] for _, _, pts, _ in packed)
+    # every sample slot valid at one width -> the mask-free tables
+    dense = all(
+        (mask is None or bool(mask.all())) and pts.shape[1] == S
+        for _, _, pts, mask in packed
+    )
+    tests, refs, tmasks, rmasks = [], [], [], []
+    for _, _, pts, mask in packed:
+        F, s = pts.shape[:2]
+        pad_pts = np.zeros((F, S, 2), dtype=pts.dtype)
+        pad_pts[:, :s] = pts
+        tests.append(pad_pts[1:])
+        refs.append(pad_pts[:-1])
+        if not dense:
+            pad_mask = np.zeros((F, S), dtype=bool)
+            pad_mask[:, :s] = True if mask is None else mask
+            tmasks.append(pad_mask[1:])
+            rmasks.append(pad_mask[:-1])
+    dtype = config.compute_dtype
+    with span("align_within.sweep"):
+        flat = multires_rotation_search_packed(
+            to_device(np.concatenate(tests), dtype),
+            to_device(np.concatenate(refs), dtype),
+            None if dense else to_device(np.concatenate(tmasks)),
+            None if dense else to_device(np.concatenate(rmasks)),
+            float(step_deg), float(range_deg), bool(bruteforce), dense=dense,
+        ).cpu().numpy()
+    delta_all, ties_all = split_packed(flat)
+
+    results = []
+    offset = 0
+    for obj, tg, pts, mask in packed:
+        n_pairs = pts.shape[0] - 1
+        with span("align_within.repair"):
+            delta = repair_chain_deltas(
+                delta_all[offset : offset + n_pairs],
+                ties_all[offset : offset + n_pairs],
+                pts, mask, float(step_deg), float(range_deg), bool(bruteforce),
+            )
+        offset += n_pairs
+        if tg is not None:
+            results.append(
+                _finish_alignment_tensor(tg, delta, smooth=smooth, verbose=verbose)
+            )
+        else:
+            results.append(
+                _finish_alignment(obj.copy(), delta, smooth=smooth, verbose=verbose)
+            )
+    return results
 
 
 @trace("align_within.finish")

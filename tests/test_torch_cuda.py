@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written sweep kernel
-against its plain version, and the single-pullback path on CUDA against the
+against its plain version (at the single path's and the between search's
+shapes), and the single-pullback and four-phase paths on CUDA against the
 CPU path.  They skip where ``torch.cuda.is_available()`` is false.
 
 The machine with the card has no JAX, so this file imports none and is run
@@ -19,6 +20,7 @@ import torch
 import multimodars_torch as mt
 from multimodars_torch.ops import rotation_search as rs
 from multimodars_torch.ops import sweep
+from multimodars_torch.pipelines import align_between
 
 pytestmark = pytest.mark.cuda
 
@@ -152,3 +154,85 @@ def test_main_path_on_cuda_matches_cpu(cuda):
     )
     np.testing.assert_array_equal(l32[:, 3:], l_cpu[:, 3:])
     np.testing.assert_allclose(c32, c_cpu, rtol=0.0, atol=1e-4)
+
+
+def _between_case(widths, seed):
+    """Between-search slots of the given (ref, test) widths: noisy elliptic
+    clouds, packed by the between search's own
+    align_between.pack_between."""
+    rng = np.random.default_rng(seed)
+    clouds = []
+    for k, (m, n) in enumerate(widths):
+        sets = []
+        for w, turn in ((m, 0.0), (n, 0.2 + k)):
+            th = np.linspace(0.0, 2.0 * math.pi, w, endpoint=False) + turn
+            sets.append(np.stack([2.0 * np.cos(th), 1.4 * np.sin(th)], -1)
+                        + rng.normal(0.0, 0.02, (w, 2)))
+        clouds.append(tuple(sets))
+    return align_between.pack_between(clouds)
+
+
+@pytest.mark.parametrize("widths", [
+    ((560, 530), (520, 560)),  # two slots, unequal widths near 560 points
+    ((640, 640), (600, 620)),  # above 600 points: past 48 KB of f64 shared memory
+])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_matches_plain_at_between_shapes(cuda, widths, dtype):
+    """The masked tables of the between search (2 slots, the full path's
+    step 0.5 / range 90 grid, strides 1 and 6) against the plain version:
+    f64 to rtol 1e-12 with equal argmins, f32 within the certification
+    band."""
+    test, ref, tmask, rmask = _between_case(widths, seed=3)
+    args = [torch.tensor(a, device=cuda) for a in (test, ref, tmask, rmask)]
+    args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+    centers = torch.zeros(len(widths), dtype=dtype, device=cuda)
+    angles, valid = rs.candidate_angles(centers, 0.5, 90.0, 90.0)
+    s2 = np.maximum((test ** 2).sum(-1).max(-1), (ref ** 2).sum(-1).max(-1))
+    for stride in (1, 6):
+        kw = dict(dense=False, outer_stride_test=stride, outer_stride_ref=stride)
+        masked = sweep.masked_launches
+        got = sweep.cost_table(*args, angles, valid, **kw)
+        assert sweep.masked_launches == masked + 1
+        want = sweep.cost_table_plain(*args, angles, valid, **kw)
+        torch.cuda.synchronize()
+        got = got.double().cpu().numpy()
+        want = want.double().cpu().numpy()
+        assert (np.isinf(got) == np.isinf(want)).all()
+        fin = np.isfinite(want)
+        if dtype == torch.float64:
+            np.testing.assert_allclose(got[fin], want[fin], rtol=1e-12, atol=0.0)
+            assert (got.argmin(axis=1) == want.argmin(axis=1)).all()
+        else:
+            w = want[fin]
+            s2f = np.broadcast_to(s2[:, None], want.shape)[fin]
+            band = rs._TIE_C * rs._eps_eff(torch.float32) * (np.sqrt(s2f * w) + w)
+            assert (np.abs(got[fin] - w) <= band).all()
+
+
+def test_full_path_on_cuda_matches_cpu(cuda):
+    """from_file_full on the vendored ivus_rest + ivus_stress pullbacks at
+    the canonical defaults: CUDA f64 equals CPU f64 (rot to 1e-12 deg,
+    coordinates to 1e-9 mm), with dense and masked kernel launches."""
+    from pathlib import Path
+
+    fixtures = Path(__file__).resolve().parent / "data" / "fixtures"
+    paths = (str(fixtures / "ivus_rest"), str(fixtures / "ivus_stress"))
+
+    def run(device):
+        with mt.config.use(device=device, dtype=torch.float64):
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = mt.from_file_full(*paths, write_obj=False)
+        coords = np.concatenate([
+            f.lumen.xyz_view() for pair in out[:4]
+            for g in (pair.geom_a, pair.geom_b) for f in g.frames
+        ])
+        return np.concatenate([np.array(l, dtype=float) for l in out[4]]), coords
+
+    launches, masked = sweep.launches, sweep.masked_launches
+    l_cuda, c_cuda = run(cuda)
+    assert sweep.masked_launches > masked
+    assert sweep.launches - launches > sweep.masked_launches - masked
+    l_cpu, c_cpu = run("cpu")
+    np.testing.assert_allclose(l_cuda[:, 2], l_cpu[:, 2], rtol=0.0, atol=1e-12)
+    np.testing.assert_allclose(l_cuda[:, 3:], l_cpu[:, 3:], rtol=0.0, atol=1e-9)
+    np.testing.assert_allclose(c_cuda, c_cpu, rtol=0.0, atol=1e-9)

@@ -16,6 +16,10 @@ _PROBE = """
 import pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises
 import multimodars_torch
+from multimodars_torch.pipelines import align_between, postprocess, to_object
+from multimodars_torch.pipelines.entry import (
+    double_pair_processing, full_processing, pair_processing,
+)
 for m in pkgutil.walk_packages(multimodars_torch.__path__, "multimodars_torch."):
     __import__(m.name)
 bad = sorted(
@@ -24,6 +28,8 @@ bad = sorted(
     or n.startswith("jax.") or n.startswith("multimodars_tpu")
 )
 assert not bad, bad
+# the PNG textures of the OBJ export import Pillow only when written
+assert "PIL" not in sys.modules
 print("ok", len([n for n in sys.modules if n.startswith("multimodars_torch")]))
 """
 
@@ -37,6 +43,31 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
+
+
+_ENTRY_POINTS = (
+    "from_array_single", "from_file_single",
+    "from_array_singlepair", "from_file_singlepair",
+    "from_array_doublepair", "from_file_doublepair",
+    "from_array_full", "from_file_full",
+)
+
+
+@pytest.mark.parametrize("name", _ENTRY_POINTS)
+def test_entry_point_exported_with_jax_signature(name):
+    """Each entry point is exported and takes the JAX package's parameters,
+    in its order, with its defaults."""
+    import inspect
+
+    import multimodars_torch as mt
+    import multimodars_tpu as mj
+
+    assert name in mt.__all__
+    got = inspect.signature(getattr(mt, name)).parameters
+    want = inspect.signature(getattr(mj, name)).parameters
+    assert [(p.name, p.default) for p in got.values()] == [
+        (p.name, p.default) for p in want.values()
+    ]
 
 
 def test_port_sources_name_no_jax():
