@@ -3,15 +3,18 @@
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
-It builds the hand-written sweep kernel from ``multimodars_torch/csrc``,
-holds it against its plain PyTorch version at the shapes the main paths give
-it, drives the port's single-pullback path (``from_array_single`` on a
+It builds the hand-written kernels from ``multimodars_torch/csrc`` (the
+rotation sweep's cost table and the centerline refine's Hausdorff table, one
+``nvcc`` each, started together), holds each against its plain PyTorch
+version at the shapes the main paths give it, drives the port's
+single-pullback path (``from_array_single`` on a
 280-frame, 500-point pullback at step 0.01 deg / range 6 deg, the
 reference's headline protocol) and its four-phase path (``from_array_full``
-on four such pullbacks at the canonical step 0.5 deg / range 90 deg) and
-checks what comes out.  Phases:
+on four such pullbacks at the canonical step 0.5 deg / range 90 deg), its
+centerline registration and its cohort entry, and checks what comes out.
+Phases:
 
-1. environment: card name and power limit, torch/CUDA versions, kernel build
+1. environment: card name and power limit, torch/CUDA versions, kernel builds
 2. kernel against plain on the card: masked/dense, outer strides 1 and 6,
    f32 and f64; f64 within rtol 1e-12 with equal argmins, f32 within the
    certification band; the f32 divergence from f64 in band units; times
@@ -31,10 +34,26 @@ checks what comes out.  Phases:
    f64 ladder, wall clock (median of 5 after 2 warm-ups) and mean spans;
    ``from_file_full`` on ivus_rest + ivus_stress on CUDA and on the CPU
    plain path, identical in f64
+6. centerline registration on the card: the north-star chain
+   (``from_array_full`` -> ``read_centerline_vtp`` -> ``align_three_point``
+   of phase 5's rest pair onto branch 0 of the vendored RCA centerline) and
+   ``align_combined`` of its diastolic pullback against a ~57k-point tube
+   cloud around branch 0 at the wrapper defaults (1 deg, +-15 deg, index
+   range 2), in f32 and f64: refine kernel launches counted, the same
+   (shift, angle) winner, coordinates within 1e-4 mm, the f64 kernel table
+   of the winner's shift equal bit for bit to numpy's, ``align_three_point``
+   equal on CUDA and the CPU, the refine kernel against plain at its real
+   shapes, wall clock (median of 5 after 2 warm-ups) and spans
+7. the cohort entry on the card: ``from_array_cohort`` on 16 OCT-280
+   pullbacks (4464 pairs in one batch) at step 0.5 deg / range 90 deg in
+   f32: the same grid angle in every pair as ``from_array_single`` per
+   case, launches counted, pullbacks/s (median of 5 after 2 warm-ups)
 
 Every phase prints its lines; any failure exits non-zero.  The line before
 the last is the kernel summary JSON, the last line is
-``{"ok": true, "device": {...}}``.  ``--only kernel`` stops after phase 2;
+``{"ok": true, "device": {...}}``.  ``--only kernel`` stops after phase 2
+and holds the refine kernel against plain on refine-shaped inputs from a
+seed;
 ``--profile`` adds a torch.profiler breakdown of one steady run of each
 main path.
 """
@@ -108,7 +127,7 @@ def cuda_ms(torch, fn, reps):
 # phase 1
 # ---------------------------------------------------------------------------
 
-def phase_environment(torch, sweep):
+def phase_environment(torch, sweep, hb):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -118,16 +137,18 @@ def phase_environment(torch, sweep):
     say("env", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
                f"device {torch.cuda.get_device_name(0)}, "
                f"count {torch.cuda.device_count()}")
+    from multimodars_torch.ops import _cuda_build
+
     t0 = time.perf_counter()
+    _cuda_build.compile_sources([(sweep.SOURCE, "sweep"), (hb.SOURCE, "hausdorff_batch")])
     sweep._library()
-    load_s = time.perf_counter() - t0
-    built = sweep.build_seconds
-    say("env", f"sweep kernel: nvcc build {built:.2f} s, load total {load_s:.2f} s"
-        if built is not None else
-        f"sweep kernel: already built, load {load_s:.2f} s")
-    for line in sweep.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            say("env", "ptxas: " + line.strip())
+    hb._library()
+    say("env", f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    for name, (built, log) in sorted(_cuda_build.reports.items()):
+        say("env", f"{name}: nvcc build {built:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                say("env", "ptxas: " + line.strip())
     # the host I/O and finish steps of the main path use native/libmmio.so
     # when it builds, else their pure-Python versions: say which path runs
     from multimodars_torch.io import native
@@ -352,42 +373,50 @@ def phase_main_path(torch, sweep, mt, profile=False):
 def reset_counters(sweep, argmin_repair, trace):
     """Set every launch and repair count to 0 and clear the spans: done just
     before a main path's counted run."""
+    from multimodars_torch.ops import hausdorff_batch
+
     for k in argmin_repair.stats:
         argmin_repair.stats[k] = 0
     sweep.launches = 0
     sweep.masked_launches = 0
+    hausdorff_batch.launches = 0
     trace.reset()
 
 
 def profile_main_path(torch, run, trace_name):
     """One steady f32 run under torch.profiler: device time by kernel and
-    the device's busy share of the wall clock.  The trace is written under
-    ``trace_name`` in the git-ignored output directory."""
-    from torch.profiler import ProfilerActivity, profile
+    the device's busy share of the wall clock, from the device-side events
+    of the trace (kernels, copies, fills; a CPU operator's device time
+    would count its kernels twice).  A first, warm-up run lets the tracer
+    start: it drops the first events of a window otherwise.  The trace is
+    written under ``trace_name`` in the git-ignored output directory."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    # leaving the block ends the recorded step; another step() would clear it
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        run()
+        prof.step()
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
-    rows = []
-    busy_us = 0.0
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, evt.count, evt.key))
-            busy_us += dev_us
-    rows.sort(reverse=True)
-    say("profile", f"wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-                   f"({100.0 * busy_us / 1e6 / wall:.2f}% busy, "
-                   f"{100.0 - 100.0 * busy_us / 1e6 / wall:.2f}% idle)")
-    for dev_us, count, key in rows[:12]:
-        say("profile", f"{dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out / trace_name))
+    events = json.loads((out / trace_name).read_text())["traceEvents"]
+    by_name = {}
+    for evt in events:
+        if evt.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            row = by_name.setdefault(evt["name"], [0.0, 0])
+            row[0] += evt["dur"]
+            row[1] += 1
+    busy_us = sum(us for us, _ in by_name.values())
+    say("profile", f"wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+                   f"({100.0 * busy_us / 1e6 / wall:.2f}% busy, "
+                   f"{100.0 - 100.0 * busy_us / 1e6 / wall:.2f}% idle)")
+    for key, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        say("profile", f"{us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    check(busy_us > 0, f"the profile of {trace_name} holds no device event")
 
 
 # ---------------------------------------------------------------------------
@@ -692,7 +721,7 @@ def phase_full_path(torch, sweep, mt, profile=False):
         for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
     if profile:
         profile_main_path(torch, run, "full_profile.json")
-    return launches, clouds32
+    return launches, clouds32, pairs32[0]
 
 
 def phase_full_cross_device(torch, mt):
@@ -720,6 +749,336 @@ def phase_full_cross_device(torch, mt):
 
 
 # ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+CL_VTP = REPO / "tests" / "data" / "centerlines" / "rca_cl.vtp"
+# the landmarks sit on branch 0 at this arc length from its start, past the
+# aortic root (radius 12-15 mm over the first ~35 mm)
+CL_ARC_MM = 60.0
+# the CCTA cloud: a tube of points this far apart around branch 0, at the
+# centerline's own inscribed radii; the bounding-box filter of a 56 mm
+# segment keeps this many of them
+TUBE_SPACING_MM = 0.3
+FILTERED_POINTS = (7000, 16000)
+
+
+def centerline_inputs(mt):
+    """Landmarks on branch 0 of the vendored RCA centerline and the tube
+    cloud around it."""
+    import numpy as np
+
+    cl = mt.read_centerline_vtp(str(CL_VTP))
+    branch0 = np.array([p.branch_id for p in cl.points]) == 0
+    pos, rad = cl.positions()[branch0], cl.radii()[branch0]
+    cum = np.concatenate([[0.0], np.cumsum(np.sqrt(((pos[1:] - pos[:-1]) ** 2).sum(-1)))])
+    i = int(np.searchsorted(cum, CL_ARC_MM))
+    side = np.cross(pos[i + 1] - pos[i - 1], [0.0, 0.0, 1.0])
+    side *= rad[i] / np.linalg.norm(side)
+    landmarks = (tuple(pos[i]), tuple(pos[i] + side), tuple(pos[i] - side))
+
+    s = np.arange(0.0, cum[-1], TUBE_SPACING_MM)
+    centre = np.stack([np.interp(s, cum, pos[:, k]) for k in range(3)], -1)
+    radius = np.interp(s, cum, rad)
+    t = np.gradient(centre, axis=0)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    a = np.cross(t, [0.0, 0.0, 1.0])
+    a /= np.linalg.norm(a, axis=1, keepdims=True)
+    b = np.cross(t, a)
+    rings = []
+    for k in range(len(s)):
+        n = max(3, int(round(2.0 * math.pi * radius[k] / TUBE_SPACING_MM)))
+        ph = np.arange(n) * (2.0 * math.pi / n)
+        rings.append(centre[k] + radius[k] * (np.cos(ph)[:, None] * a[k]
+                                              + np.sin(ph)[:, None] * b[k]))
+    return landmarks, np.concatenate(rings)
+
+
+@contextlib.contextmanager
+def recorded_refine(ca):
+    """Record the packed inputs of each refine table a run evaluates."""
+    seen = []
+    table = ca.refine_table
+
+    def spy(packed, K, dtype):
+        seen.append((packed, K))
+        return table(packed, K, dtype)
+
+    ca.refine_table = spy
+    try:
+        yield seen
+    finally:
+        ca.refine_table = table
+
+
+def nearest_exact_sq(a, b, k=8):
+    """numpy's float64 squared Hausdorff of point sets a and b, its
+    ``dx*dx + dy*dy`` taken over each point's k nearest neighbours
+    (scipy's KD-tree picks them; the minimum is among them unless more than
+    k points lie within rounding of it)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    def directed(x, y):
+        _, idx = cKDTree(y).query(x, k=min(k, len(y)))
+        idx = idx.reshape(len(x), -1)
+        dx = x[:, None, 0] - y[idx, 0]
+        dy = x[:, None, 1] - y[idx, 1]
+        return (dx * dx + dy * dy).min(axis=1).max()
+
+    return max(directed(a, b), directed(b, a))
+
+
+def check_refine_table(torch, hb, dtype, packed, K):
+    """The refine kernel against its plain version on the same CUDA tensors
+    (equal bit for bit: both round every operation of d2, and min and max
+    are exact); returns (max abs err, kernel ms, plain ms)."""
+    import numpy as np
+
+    dev = torch.device("cuda", 0)
+    p, pmask, q, qmask = packed
+    args = (torch.as_tensor(p, dtype=dtype, device=dev), torch.as_tensor(pmask, device=dev),
+            torch.as_tensor(q, dtype=dtype, device=dev), torch.as_tensor(qmask, device=dev))
+    k_out = hb.hausdorff_sq_shared_ref(*args, K).double().cpu().numpy()
+    p_out = hb.hausdorff_sq_shared_ref_plain(*args, K).double().cpu().numpy()
+    ms = cuda_ms(torch, lambda: hb.hausdorff_sq_shared_ref(*args, K), 5)
+    plain_ms = cuda_ms(torch, lambda: hb.hausdorff_sq_shared_ref_plain(*args, K), 2)
+    err = float(np.abs(k_out - p_out).max())
+    pairs = 2.0 * p.shape[0] * p.shape[1] * q.shape[1]
+    tag = "f32" if dtype == torch.float32 else "f64"
+    say("refine", f"{tag} table [S*K {p.shape[0]}, n {p.shape[1]}, m {q.shape[1]}]: "
+                  f"kernel {ms:.3f} ms ({pairs / ms / 1e9:.2f} T point pairs/s), plain "
+                  f"{plain_ms:.3f} ms, max |kernel-plain| {err:.3e}, "
+                  f"{int((k_out == 0).sum())} zero entries")
+    check(err == 0.0, f"{tag} refine kernel differs from plain")
+    return err, ms, plain_ms
+
+
+def synthetic_refine_tables(S=5, K=31, n=11200, m=11100, seed=13):
+    """Refine-shaped inputs from a seed (for ``--only kernel``): candidate
+    sets and clouds around (200, -200) mm with ragged masks, one empty
+    candidate."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    p = rng.normal(0.0, 6.0, (S * K, n, 2)) + [200.0, -200.0]
+    q = rng.normal(0.0, 6.0, (S, m, 2)) + [200.0, -200.0]
+    pmask = np.arange(n)[None, :] < rng.integers(n // 2, n + 1, S * K)[:, None]
+    qmask = np.arange(m)[None, :] < rng.integers(m // 2, m + 1, S)[:, None]
+    pmask[1] = False
+    return (p, pmask, q, qmask), K
+
+
+def phase_centerline(torch, hb, mt, pair_ab, profile=False):
+    import numpy as np
+
+    from multimodars_torch.ops import argmin_repair, sweep
+    from multimodars_torch.ops.hausdorff_batch import hausdorff_sq_shared_ref
+    from multimodars_torch.pipelines import centerline_align as ca
+    from multimodars_torch.pipelines.centerline_align import exact_candidate_sq
+    from multimodars_torch.utils import trace
+
+    landmarks, cloud = centerline_inputs(mt)
+    datas = full_inputs(mt)
+    n_frames = len(pair_ab.geom_a.frames)
+    resampled = ca.preprocess_centerline(mt.read_centerline_vtp(str(CL_VTP)),
+                                         pair_ab.geom_a)
+    ref_idx = resampled.find_reference_cl_point_idx(landmarks[0])
+    check(ref_idx + n_frames + 2 < len(resampled.points),
+          f"landmark index {ref_idx} + {n_frames} frames + 2 leaves the "
+          f"{len(resampled.points)}-point centerline")
+
+    def chain():
+        out = quiet(mt.from_array_full, *datas, **FULL_ARGS)
+        cl = mt.read_centerline_vtp(str(CL_VTP))
+        aligned, _ = quiet(mt.align_three_point, cl, out[0], *landmarks)
+        torch.cuda.synchronize()
+        return out[0], aligned
+
+    def combined():
+        cl = mt.read_centerline_vtp(str(CL_VTP))
+        out, _ = quiet(mt.align_combined, cl, pair_ab.geom_a, *landmarks, cloud)
+        torch.cuda.synchronize()
+        return out
+
+    def counters():
+        return {k: argmin_repair.stats.get(k, 0)
+                for k in ("flagged", "repaired", "changed", "host_exact")}
+
+    # the counted run: every launch count set to 0 just before it
+    reset_counters(sweep, argmin_repair, trace)
+    t0 = time.perf_counter()
+    rest32, chain32 = chain()
+    chain_s = time.perf_counter() - t0
+    with recorded_refine(ca) as tables32:
+        t0 = time.perf_counter()
+        comb32 = combined()
+        comb_s = time.perf_counter() - t0
+    launches, sweep_launches = hb.launches, sweep.launches
+    report32, stats32 = dict(ca.refine_report), counters()
+    say("centerline", f"branch-0 landmark at {CL_ARC_MM} mm: resampled index {ref_idx} "
+                      f"of {len(resampled.points)}; tube cloud {len(cloud)} points; "
+                      f"refine grid {report32}")
+    say("centerline", f"f32 first runs: north-star chain {chain_s:.3f} s, align_combined "
+                      f"{comb_s:.3f} s; refine kernel launches {launches}, sweep "
+                      f"launches {sweep_launches}, repair counters {stats32}")
+    check(launches > 0, "the centerline path launched no refine kernel")
+    check(FILTERED_POINTS[0] <= report32["m"] <= FILTERED_POINTS[1],
+          f"the filtered cloud holds {report32['m']} points, not {FILTERED_POINTS}")
+
+    for k in argmin_repair.stats:
+        argmin_repair.stats[k] = 0
+    with mt.config.use(dtype=torch.float64):
+        rest64, chain64 = chain()
+        with recorded_refine(ca) as tables64:
+            comb64 = combined()
+    report64, stats64 = dict(ca.refine_report), counters()
+    d_rest = float(np.abs(pair_coords([rest32]) - pair_coords([rest64])).max())
+    d_chain = float(np.abs(pair_coords([chain32]) - pair_coords([chain64])).max())
+    d_comb = float(np.abs(lumen_coords(comb32) - lumen_coords(comb64)).max())
+    say("centerline", f"f64 run: refine grid {report64}, repair counters {stats64}; "
+                      f"f32 vs f64: winner (shift slot, angle slot) "
+                      f"{report32['winner']} vs {report64['winner']}, max |coord diff| "
+                      f"align_combined {d_comb:.3e} mm, north-star chain {d_chain:.3e} mm "
+                      f"(its rest pair before align_three_point {d_rest:.3e} mm)")
+    check(report32["winner"] == report64["winner"],
+          "f32 and f64 refines chose different (shift, angle) winners")
+    check(d_comb <= 1e-4 and d_chain <= 1e-4, "f32 and f64 centerline outputs differ")
+    check(np.isfinite(lumen_coords(comb32)).all(), "align_combined output not finite")
+
+    # align_three_point on the card and on the CPU (its search is host f64)
+    with mt.config.use(device="cpu", dtype=torch.float64):
+        cpu = quiet(mt.align_three_point, mt.read_centerline_vtp(str(CL_VTP)),
+                    pair_ab, *landmarks)[0]
+    gpu = quiet(mt.align_three_point, mt.read_centerline_vtp(str(CL_VTP)),
+                pair_ab, *landmarks)[0]
+    d_tp = float(np.abs(pair_coords([gpu]) - pair_coords([cpu])).max())
+    say("centerline", f"align_three_point CUDA vs CPU max |coord diff| {d_tp:.3e} mm")
+    check(d_tp <= 1e-9, "align_three_point differs between CUDA and the CPU")
+
+    # the f64 kernel table of the winner's shift against numpy's
+    (p, pmask, q, qmask), K = tables64[0]
+    si = report64["winner"][0]
+    dev = torch.device("cuda", 0)
+    sl = slice(si * K, (si + 1) * K)
+    table = hausdorff_sq_shared_ref(
+        torch.as_tensor(p[sl], device=dev), torch.as_tensor(pmask[sl], device=dev),
+        torch.as_tensor(q[si:si + 1], device=dev),
+        torch.as_tensor(qmask[si:si + 1], device=dev), K,
+    ).cpu().numpy()
+    t0 = time.perf_counter()
+    cloud_s = q[si][qmask[si]]
+    near = np.array([nearest_exact_sq(p[c][pmask[c]], cloud_s)
+                     for c in range(sl.start, sl.stop)])
+    # two candidates (the winner and its neighbour) over every point pair
+    ks = sorted({report64["winner"][1], (report64["winner"][1] + 1) % K})
+    full = np.array([exact_candidate_sq(p[sl][k][pmask[sl][k]], cloud_s) for k in ks])
+    same_near = bool(np.array_equal(table, near))
+    same_full = bool(np.array_equal(table[ks], full))
+    say("centerline", f"f64 kernel table of shift slot {si} vs numpy: equal bit for "
+                      f"bit over its {K} candidates (8 nearest neighbours) {same_near}, "
+                      f"over every pair of candidates {ks} {same_full} "
+                      f"({time.perf_counter() - t0:.1f} s)")
+    check(same_near and same_full, "f64 kernel table differs from numpy's")
+
+    # the kernel against its plain version at the refine's real shapes
+    res = [check_refine_table(torch, hb, dtype, *tables[0]) for dtype, tables in
+           ((torch.float32, tables32), (torch.float64, tables64))]
+
+    for name, fn in (("north-star chain", chain), ("align_combined", combined)):
+        for _ in range(2):
+            fn()
+        trace.reset()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        say("centerline", f"{name} wall clock f32, median of 5 after 2 warm-ups: "
+                          f"{sorted(times)[2]:.4f} s (runs {', '.join(f'{t:.4f}' for t in times)})")
+        say("centerline", f"{name} spans per run, mean of those runs (s, calls): " + ", ".join(
+            f"{k} {v[0] / 5:.4f} (x{v[1] // 5})"
+            for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
+    if profile:
+        profile_main_path(torch, chain, "north_star_profile.json")
+        profile_main_path(torch, combined, "align_combined_profile.json")
+    return launches, sweep_launches, dict(
+        max_abs_err=max(r[0] for r in res), ms=res[0][1], plain_ms=res[0][2])
+
+
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+COHORT_SEEDS = tuple(range(7, 23))
+
+
+def phase_cohort(torch, sweep, mt, profile=False):
+    import numpy as np
+
+    from bench import synthetic_oct_pullback
+    from multimodars_torch.ops import argmin_repair
+    from multimodars_torch.utils import trace
+
+    datas = []
+    for seed in COHORT_SEEDS:
+        lumen, ref = synthetic_oct_pullback(OCT_FRAMES, OCT_POINTS, seed)
+        datas.append(mt.numpy_to_inputdata(lumen, ref, True, label=f"case{seed}"))
+    kw = dict(step_rotation_deg=FULL_STEP, range_rotation_deg=FULL_RANGE,
+              sample_size=500, smooth=True)
+
+    def run():
+        out = quiet(mt.from_array_cohort, datas, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    # the counted run: every launch count set to 0 just before it
+    reset_counters(sweep, argmin_repair, trace)
+    t0 = time.perf_counter()
+    cohort = run()
+    first_s = time.perf_counter() - t0
+    launches, masked = sweep.launches, sweep.masked_launches
+    stats = {k: argmin_repair.stats.get(k, 0)
+             for k in ("flagged", "repaired", "changed", "host_exact")}
+    n_pairs = sum(len(logs) for _, logs, _ in cohort)
+    say("cohort", f"from_array_cohort 16 x OCT-280 f32: {first_s:.3f} s (first run), "
+                  f"{n_pairs} pairs, sweep launches {launches} ({masked} masked), "
+                  f"repair counters {stats}")
+    check(n_pairs == len(COHORT_SEEDS) * (OCT_FRAMES - 1), f"{n_pairs} pairs")
+    check(launches > 0, "the cohort launched no sweep kernel")
+
+    mismatched = 0
+    for data, (geom, logs, _) in zip(datas, cohort):
+        _, slogs = quiet(mt.from_array_single, data, write_obj=False, **kw)
+        got = np.rint(np.array([l.rot_deg for l in logs]) / FULL_STEP)
+        want = np.rint(np.array([l[2] for l in slogs]) / FULL_STEP)
+        mismatched += int((got != want).sum())
+        check(np.isfinite(lumen_coords(geom)).all(), "cohort output not finite")
+    say("cohort", f"grid angles against from_array_single per case: "
+                  f"{mismatched} of {n_pairs} pairs differ")
+    check(mismatched == 0, "cohort and per-case singles land on different grid angles")
+
+    for _ in range(2):
+        run()
+    trace.reset()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[2]
+    say("cohort", f"wall clock f32, median of 5 after 2 warm-ups: {med:.4f} s = "
+                  f"{len(COHORT_SEEDS) / med:.2f} pullbacks/s "
+                  f"(runs {', '.join(f'{t:.4f}' for t in times)})")
+    say("cohort", "spans per run, mean of those runs (s, calls): " + ", ".join(
+        f"{k} {v[0] / 5:.4f} (x{v[1] // 5})"
+        for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
+    if profile:
+        profile_main_path(torch, run, "cohort_profile.json")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -741,23 +1100,33 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     import multimodars_torch as mt
+    from multimodars_torch.ops import hausdorff_batch as hb
     from multimodars_torch.ops import rotation_search as rs
     from multimodars_torch.ops import sweep
 
     # a failed check raises SmokeFailure out of main(): the traceback names
     # the phase and the process exits non-zero
-    phase_environment(torch, sweep)
+    phase_environment(torch, sweep, hb)
     kres = phase_kernel(torch, sweep, rs)
-    launches = None
-    if args.only != "kernel":
+    launches = hb_launches = None
+    if args.only == "kernel":
+        res = [check_refine_table(torch, hb, dtype, *synthetic_refine_tables())
+               for dtype in (torch.float32, torch.float64)]
+        hres = dict(max_abs_err=max(r[0] for r in res), ms=res[0][1],
+                    plain_ms=res[0][2])
+    else:
         launches, _ = phase_main_path(torch, sweep, mt, args.profile)
         phase_cross_device(torch, mt)
-        full_launches, clouds = phase_full_path(torch, sweep, mt, args.profile)
+        full_launches, clouds, pair_ab = phase_full_path(torch, sweep, mt, args.profile)
         launches += full_launches
         kres["max_abs_err"] = max(
             kres["max_abs_err"], phase_full_kernel(torch, sweep, rs, mt, clouds[:2])
         )
         phase_full_cross_device(torch, mt)
+        hb_launches, chain_launches, hres = phase_centerline(
+            torch, hb, mt, pair_ab, args.profile)
+        launches += chain_launches
+        launches += phase_cohort(torch, sweep, mt, args.profile)
     for name in sorted(sys.modules):
         if name == "jax" or name.startswith(("jax.", "multimodars_tpu")):
             print(f"FAIL: {name} was imported", flush=True)
@@ -771,6 +1140,15 @@ def main() -> int:
         "max_abs_err": kres["max_abs_err"],
         "ms": kres["ms"],
         "plain_ms": kres["plain_ms"],
+    }, {
+        "name": "hausdorff_batch",
+        "route": "cuda",
+        "source": "multimodars_torch/csrc/hausdorff_batch.cu",
+        "replaces": "multimodars_tpu/pipelines/centerline_align.py:515",
+        "launches": hb_launches,
+        "max_abs_err": hres["max_abs_err"],
+        "ms": hres["ms"],
+        "plain_ms": hres["plain_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,9 +9,13 @@ Alignment log entries are returned as
 
 from __future__ import annotations
 
+import math
+import os
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 from .io.csv_io import InputData
+from .models.geometry import PyGeometry
 from .models.point import PyContourType
 from .models.record import PyInputData
 from .pipelines import entry as _entry
@@ -449,3 +453,187 @@ def from_array_single(
         sample_size=sample_size,
     )
     return geom, logs_to_tuples(logs)
+
+
+def align_three_point(
+    centerline,
+    geometry,
+    main_ref_pt,
+    counterclockwise_ref_pt,
+    clockwise_ref_pt,
+    angle_step_deg: float = 1.0,
+    write: bool = False,
+    watertight: bool = True,
+    interpolation_steps: int = 0,
+    output_dir: str = "output/aligned",
+    contour_types=None,
+    case_name: str = "None",
+    align_wall_anomalous: bool = False,
+):
+    """Register a geometry (or pair) onto a centerline via three anatomical
+    landmark points.  Returns (aligned target, resampled centerline)."""
+    from .pipelines.centerline_align import align_three_point_rs
+
+    return align_three_point_rs(
+        centerline,
+        geometry.copy(),
+        tuple(main_ref_pt),
+        tuple(counterclockwise_ref_pt),
+        tuple(clockwise_ref_pt),
+        math.radians(angle_step_deg),
+        write,
+        watertight,
+        interpolation_steps,
+        output_dir,
+        _type_names(contour_types),
+        case_name,
+        align_wall_anomalous,
+    )
+
+
+def align_manual(
+    centerline,
+    geometry,
+    rotation_angle: float,
+    ref_point,
+    write: bool = False,
+    watertight: bool = True,
+    interpolation_steps: int = 0,
+    output_dir: str = "output/aligned",
+    contour_types=None,
+    case_name: str = "None",
+    align_wall_anomalous: bool = False,
+):
+    """Register a geometry (or pair) onto a centerline with a user-supplied
+    rotation (degrees)."""
+    from .pipelines.centerline_align import align_manual_rs
+
+    return align_manual_rs(
+        centerline,
+        geometry.copy(),
+        float(rotation_angle),
+        tuple(ref_point),
+        write,
+        watertight,
+        interpolation_steps,
+        output_dir,
+        _type_names(contour_types),
+        case_name,
+        align_wall_anomalous,
+    )
+
+
+def align_combined(
+    centerline,
+    geometry,
+    main_ref_pt,
+    counterclockwise_ref_pt,
+    clockwise_ref_pt,
+    points,
+    angle_step_deg: float = 1.0,
+    angle_range_deg: float = 15.0,
+    index_range: int = 2,
+    write: bool = False,
+    watertight: bool = True,
+    interpolation_steps: int = 0,
+    output_dir: str = "output/aligned",
+    contour_types=None,
+    case_name: str = "None",
+    align_wall_anomalous: bool = False,
+):
+    """Three-point initialisation + Hausdorff refinement over a
+    (centerline-shift x angle) grid against a CCTA point cloud; the grid is
+    one table on ``config.device`` (the hand-written kernel on CUDA)."""
+    from .pipelines.centerline_align import align_combined_rs
+
+    return align_combined_rs(
+        centerline,
+        geometry.copy(),
+        tuple(main_ref_pt),
+        tuple(counterclockwise_ref_pt),
+        tuple(clockwise_ref_pt),
+        list(points),
+        math.radians(angle_step_deg),
+        math.radians(angle_range_deg),
+        int(index_range),
+        write,
+        watertight,
+        interpolation_steps,
+        output_dir,
+        _type_names(contour_types),
+        case_name,
+        align_wall_anomalous,
+    )
+
+
+def to_obj(
+    geometry: PyGeometry,
+    output_path: str,
+    watertight: bool = True,
+    contour_types=None,
+    filename_prefix: str = "",
+) -> None:
+    """Write a geometry's contour stacks as OBJ meshes (one per type)."""
+    from .io.obj_io import (
+        create_mtl_for_contour_type,
+        extract_contours_by_type,
+        get_contour_type_name,
+        write_obj_mesh_without_uv,
+    )
+
+    os.makedirs(output_path, exist_ok=True)
+    for contour_type in _type_names(contour_types):
+        contours = extract_contours_by_type(geometry, contour_type)
+        if not contours:
+            continue
+        type_name = get_contour_type_name(contour_type)
+        prefix = f"{filename_prefix}_" if filename_prefix else ""
+        obj_path = Path(output_path) / f"{prefix}{type_name}.obj"
+        mtl_path = Path(output_path) / f"{prefix}{type_name}.mtl"
+        create_mtl_for_contour_type(contour_type, mtl_path, obj_path.name)
+        write_obj_mesh_without_uv(contours, str(obj_path), str(mtl_path), watertight)
+
+
+def read_centerline_vtp(path: str):
+    """Read an ASCII VTP centerline file."""
+    from .io.csv_io import read_centerline_vtp as _read
+
+    return _read(path)
+
+
+def from_array_cohort(
+    input_data_list,
+    step_rotation_deg: float = 0.5,
+    range_rotation_deg: float = 90.0,
+    sample_size: int = 500,
+    image_center: Tuple[float, float] = (4.5, 4.5),
+    radius: float = 0.5,
+    n_points: int = 20,
+    labels=None,
+    bruteforce: bool = False,
+    smooth: bool = True,
+    verbose: bool = False,
+    devices=None,
+):
+    """Register N independent pullbacks with ONE batched rotation search on
+    ``config.device``.  Returns a list of (PyGeometry, logs, anomalous)
+    triples in input order.  ``devices`` is the JAX package's mesh
+    argument; the port runs on one device and takes only None."""
+    if devices is not None:
+        raise ValueError(
+            "multimodars_torch runs on one device (config.device); "
+            "pass devices=None"
+        )
+    return _entry.cohort_processing(
+        [_to_inputdata(d) for d in input_data_list],
+        labels=labels,
+        image_center=image_center,
+        radius=radius,
+        n_points=n_points,
+        step_deg=step_rotation_deg,
+        range_deg=range_rotation_deg,
+        smooth=smooth,
+        bruteforce=bruteforce,
+        sample_size=sample_size,
+        verbose=verbose,
+    )

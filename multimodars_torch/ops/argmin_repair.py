@@ -210,37 +210,30 @@ def _device_f64_retier(
     return split_packed(flat.cpu().numpy())
 
 
-def repair_chain_deltas(
-    delta: np.ndarray,
+def repair_sets(
+    values: np.ndarray,
     ties: np.ndarray,
-    pts: np.ndarray,
-    mask: Optional[np.ndarray],
+    sets_of,
     step_deg: float,
     range_deg: float,
     bruteforce: bool,
+    what: str = "pair",
 ) -> np.ndarray:
-    """Re-decide flagged pairs of a within-chain search.
+    """Re-decide flagged searches from their float64 search sets.
 
-    Tiered: flagged pairs first re-sweep in f64 on the compute device (one
-    batched search); pairs still tied within the f64 band then re-decide in
-    exact host f64.  ``pts``: the f64 ``[F, S, 2]`` centered sample sets
-    the sweep used (pair i = test ``pts[i+1]`` vs ref ``pts[i]``); ``mask``:
-    [F, S] or None (dense).  Returns ``delta`` with flagged entries
-    replaced."""
+    Tiered: flagged searches first re-run in f64 on the compute device (one
+    batched search); those still tied within the f64 band then re-decide in
+    exact host f64.  ``sets_of(i)`` gives search i's centred ``(test, ref)``
+    f64 sets as the sweep searched them.  Returns ``values`` with flagged
+    entries replaced."""
     flagged = np.nonzero(ties)[0]
     if len(flagged) == 0:
-        return delta
+        return values
     stats["flagged"] += len(flagged)
     if not certify_enabled():
-        return delta
-    delta = np.array(delta, dtype=np.float64, copy=True)
-
-    def sets(i):
-        t = pts[i + 1] if mask is None else pts[i + 1][mask[i + 1]]
-        r = pts[i] if mask is None else pts[i][mask[i]]
-        return np.asarray(t, np.float64), np.asarray(r, np.float64)
-
-    pair_sets = [sets(i) for i in flagged]
+        return values
+    values = np.array(values, dtype=np.float64, copy=True)
+    pair_sets = [sets_of(i) for i in flagged]
     tier2 = _device_f64_retier(
         [t for t, _ in pair_sets], [r for _, r in pair_sets],
         step_deg, range_deg, bruteforce,
@@ -251,9 +244,9 @@ def repair_chain_deltas(
         for k, i in enumerate(flagged):
             if not tie64[k]:
                 stats["repaired"] += 1
-                if best64[k] != delta[i]:
+                if best64[k] != values[i]:
                     stats["changed"] += 1
-                delta[i] = best64[k]
+                values[i] = best64[k]
         host_idx = [k for k in range(len(flagged)) if tie64[k]]
     for k in host_idx:
         i = flagged[k]
@@ -261,14 +254,38 @@ def repair_chain_deltas(
         exact = exact_ladder(t, r, step_deg, range_deg, bruteforce)
         stats["repaired"] += 1
         stats["host_exact"] = stats.get("host_exact", 0) + 1
-        if exact != delta[i]:
+        if exact != values[i]:
             stats["changed"] += 1
             _note(
-                f"chain pair {i}: {math.degrees(delta[i]):+.4f} deg -> "
+                f"{what} {i}: {math.degrees(values[i]):+.4f} deg -> "
                 f"{math.degrees(exact):+.4f} deg (exact f64)"
             )
-        delta[i] = exact
-    return delta
+        values[i] = exact
+    return values
+
+
+def repair_chain_deltas(
+    delta: np.ndarray,
+    ties: np.ndarray,
+    pts: np.ndarray,
+    mask: Optional[np.ndarray],
+    step_deg: float,
+    range_deg: float,
+    bruteforce: bool,
+) -> np.ndarray:
+    """Re-decide flagged pairs of a within-chain search
+    (:func:`repair_sets`).  ``pts``: the f64 ``[F, S, 2]`` centered sample
+    sets the sweep used (pair i = test ``pts[i+1]`` vs ref ``pts[i]``);
+    ``mask``: [F, S] or None (dense)."""
+
+    def sets(i):
+        t = pts[i + 1] if mask is None else pts[i + 1][mask[i + 1]]
+        r = pts[i] if mask is None else pts[i][mask[i]]
+        return np.asarray(t, np.float64), np.asarray(r, np.float64)
+
+    return repair_sets(
+        delta, ties, sets, step_deg, range_deg, bruteforce, "chain pair"
+    )
 
 
 def repair_between(
@@ -279,41 +296,16 @@ def repair_between(
     range_deg: float,
     bruteforce: bool,
 ) -> np.ndarray:
-    """Re-decide flagged between-geometry searches: the f64 re-search on
-    the compute device first, exact host f64 for slots still tied.
+    """Re-decide flagged between-geometry searches (:func:`repair_sets`).
 
     ``clouds``: [(reference_xy, target_xy)] raw (uncentered) f64 clouds per
     slot, centred by :func:`center_clouds` as the between search centres
     them."""
-    flagged = np.nonzero(ties)[0]
-    if len(flagged) == 0:
-        return rotations
-    stats["flagged"] += len(flagged)
-    if not certify_enabled():
-        return rotations
-    rotations = np.array(rotations, dtype=np.float64, copy=True)
-    tests, refs = center_clouds([clouds[k] for k in flagged])
-    tier2 = _device_f64_retier(tests, refs, step_deg, range_deg, bruteforce)
-    host_idx = range(len(flagged))
-    if tier2 is not None:
-        best64, tie64 = tier2
-        for j, k in enumerate(flagged):
-            if not tie64[j]:
-                stats["repaired"] += 1
-                if best64[j] != rotations[k]:
-                    stats["changed"] += 1
-                rotations[k] = best64[j]
-        host_idx = [j for j in range(len(flagged)) if tie64[j]]
-    for j in host_idx:
-        k = flagged[j]
-        exact = exact_ladder(tests[j], refs[j], step_deg, range_deg, bruteforce)
-        stats["repaired"] += 1
-        stats["host_exact"] = stats.get("host_exact", 0) + 1
-        if exact != rotations[k]:
-            stats["changed"] += 1
-            _note(
-                f"between slot {k}: {math.degrees(rotations[k]):+.4f} deg "
-                f"-> {math.degrees(exact):+.4f} deg (exact f64)"
-            )
-        rotations[k] = exact
-    return rotations
+
+    def sets(k):
+        tests, refs = center_clouds([clouds[k]])
+        return tests[0], refs[0]
+
+    return repair_sets(
+        rotations, ties, sets, step_deg, range_deg, bruteforce, "between slot"
+    )

@@ -8,9 +8,11 @@ Reference semantics (process_utils.rs:78-121):
 - directed = max over a of (min over b of squared distance), sqrt at the end
 - either set empty -> 0.0
 
-These materialise the ``[..., N, M]`` distance tile.  The rotation sweep
-does not call them on a CUDA tensor: its cost table goes through the
-hand-written kernel of :mod:`ops.sweep`, whose plain version they are.
+These materialise the ``[..., N, M]`` distance tile.  No main path calls
+them on a CUDA tensor: the rotation sweep's cost table goes through the
+hand-written kernel of :mod:`ops.sweep` and the centerline refine's table
+through that of :mod:`ops.hausdorff_batch`, whose plain versions they
+are.
 """
 
 from __future__ import annotations

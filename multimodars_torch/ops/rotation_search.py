@@ -145,8 +145,12 @@ def search_range_batched(
     """
     if step_deg <= 0.0:
         return centers, torch.zeros(centers.shape, dtype=torch.bool, device=centers.device)
-    angles, valid = candidate_angles(centers, step_deg, range_deg, limes_deg)
-    costs = rotation_cost_table(test, ref, test_mask, ref_mask, angles, valid, dense)
+    angles, valid = candidate_angles(
+        centers.to(torch.float64), step_deg, range_deg, limes_deg
+    )
+    costs = rotation_cost_table(
+        test, ref, test_mask, ref_mask, angles.to(test.dtype), valid, dense
+    )
     best_k = torch.argmin(costs, dim=1)  # first occurrence wins
     best = _take(angles, best_k)
     any_valid = valid.any(dim=1)
@@ -208,17 +212,20 @@ def search_range_batched_pruned(
     fails.  Returns ``(best, tie)`` like the unpruned stage."""
     if step_deg <= 0.0:
         return centers, torch.zeros(centers.shape, dtype=torch.bool, device=centers.device)
-    angles, valid = candidate_angles(centers, step_deg, range_deg, limes_deg)
+    angles, valid = candidate_angles(
+        centers.to(torch.float64), step_deg, range_deg, limes_deg
+    )
     K = angles.shape[1]
     T = min(_PRUNE_TOP, K)
 
     lb = _lb_cost_table(
-        test, ref, test_mask, ref_mask, angles, valid, _PRUNE_STRIDE, dense
+        test, ref, test_mask, ref_mask, angles.to(test.dtype), valid,
+        _PRUNE_STRIDE, dense,
     )
     # T smallest lb, ties -> lower index first, then back to grid order
     sel_idx = torch.sort(lb, dim=1, stable=True).indices[:, :T]
     sel_idx = torch.sort(sel_idx, dim=1).values
-    angles_sel = torch.gather(angles, 1, sel_idx).contiguous()
+    angles_sel = torch.gather(angles, 1, sel_idx).to(test.dtype).contiguous()
     valid_sel = torch.gather(valid, 1, sel_idx).contiguous()
     exact = rotation_cost_table(
         test, ref, test_mask, ref_mask, angles_sel, valid_sel, dense
@@ -252,7 +259,9 @@ def search_range_batched_pruned(
 
     if bool(cert.all()):
         return pruned_answer, tie_eval | zero_tie
-    costs = rotation_cost_table(test, ref, test_mask, ref_mask, angles, valid, dense)
+    costs = rotation_cost_table(
+        test, ref, test_mask, ref_mask, angles.to(test.dtype), valid, dense
+    )
     bk = torch.argmin(costs, dim=1)
     b = _take(angles, bk)
     mf = costs.amin(dim=1)
@@ -341,10 +350,13 @@ def _multires_rotation_search_impl(
     """Returns ``(best, tie_any, tie_early, tie_final, last_centers)``, each
     [F]: the final angles, the tie flag of any stage, of the stages before
     the last, of the last stage, and the last stage's window centers."""
-    dtype = test.dtype
     F = test.shape[0]
     device = test.device
-    centers = torch.zeros((F,), dtype=dtype, device=device)
+    # the angle grids and the answers stay float64 in every compute dtype
+    # (each table takes its grid cast to the points' dtype), so a float32
+    # search that lands on the same grid indices as a float64 one returns
+    # the same angles bit for bit
+    centers = torch.zeros((F,), dtype=torch.float64, device=device)
     no_flags = torch.zeros((F,), dtype=torch.bool, device=device)
     big_enough = min(test.shape[1], ref.shape[1]) >= _PRUNE_MIN_POINTS
     if bruteforce:

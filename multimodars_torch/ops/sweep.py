@@ -1,5 +1,5 @@
 """Cost table of the rotation sweep: the hand-written CUDA kernel
-(``csrc/sweep_cost.cu``), its plain PyTorch version, and the build helper.
+(``csrc/sweep_cost.cu``), its plain PyTorch version, and its binding.
 
 For every frame pair f and candidate angle slot k the table holds
 
@@ -17,42 +17,29 @@ give the lower bound of ``rotation_search._lb_cost_table``.
 :func:`cost_table` dispatches on the device of its inputs: a CPU tensor goes
 to :func:`cost_table_plain`, a CUDA tensor to the kernel.  The kernel is
 compiled with ``nvcc`` for ``sm_90a`` at its first use, from the source in
-this package, into ``_build/`` beside it, and loaded with ``ctypes``.
-``launches`` counts the kernel launches of this process, ``masked_launches``
-those of them on masked tables.
+this package, and loaded with ``ctypes`` (:mod:`ops._cuda_build`).
+A batch of more than ``MAX_PAIRS`` frame pairs (the kernel grid's limit) is
+launched in slices of that many.  ``launches`` counts the kernel launches of
+this process, ``masked_launches`` those of them on masked tables.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Optional
 
 import torch
 
+from . import _cuda_build
 from .hausdorff import directed_sq, hausdorff_sq_dense, hausdorff_sq_masked
 
 #: kernel launches made by :func:`cost_table` in this process
 launches = 0
 #: the part of ``launches`` on masked tables (the rest are dense)
 masked_launches = 0
-#: seconds the nvcc build took in this process (None: no build ran)
-build_seconds: Optional[float] = None
-#: nvcc's output of that build (register and shared-memory use per kernel)
-build_log = ""
 
-_PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCE = _PKG_DIR / "csrc" / "sweep_cost.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+SOURCE = _cuda_build.CSRC_DIR / "sweep_cost.cu"
+#: most frame pairs one launch takes (the kernel grid's y dimension)
+MAX_PAIRS = 65535
 # static shared memory of the kernel (its per-warp reduction slots), kept
 # out of the dynamic budget with room to spare
 _STATIC_SMEM_MARGIN = 1024
@@ -121,39 +108,12 @@ def cost_table_plain(
 # build and binding
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the sweep kernel cannot be built")
-
-
 def _library():
     """The compiled kernel library, built on first use."""
-    global _lib, build_seconds, build_log
+    global _lib
     if _lib is not None:
         return _lib
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"libsweep_cost_{tag.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}"
-            )
-        os.replace(tmp, so)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stderr
-    lib = ctypes.CDLL(str(so))
+    lib = _cuda_build.load(SOURCE, "sweep")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("mm_sweep_cost_f32", "mm_sweep_cost_f64"):
         fn = getattr(lib, name)
@@ -167,19 +127,6 @@ def _library():
     lib.mm_sweep_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
-
-
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def check_inputs(
@@ -202,19 +149,19 @@ def check_inputs(
     if angles.dim() != 2:
         raise ValueError(f"angles: shape {tuple(angles.shape)}, expected [F, K]")
     K = angles.shape[1]
-    _check("test", test, dtype, (F, N, 2), device)
-    _check("ref", ref, dtype, (F, M, 2), device)
-    _check("angles", angles, dtype, (F, K), device)
-    _check("angles_valid", angles_valid, torch.bool, (F, K), device)
+    _cuda_build.check_tensor("test", test, dtype, (F, N, 2), device)
+    _cuda_build.check_tensor("ref", ref, dtype, (F, M, 2), device)
+    _cuda_build.check_tensor("angles", angles, dtype, (F, K), device)
+    _cuda_build.check_tensor(
+        "angles_valid", angles_valid, torch.bool, (F, K), device
+    )
     if not dense:
-        _check("test_mask", test_mask, torch.bool, (F, N), device)
-        _check("ref_mask", ref_mask, torch.bool, (F, M), device)
+        _cuda_build.check_tensor("test_mask", test_mask, torch.bool, (F, N), device)
+        _cuda_build.check_tensor("ref_mask", ref_mask, torch.bool, (F, M), device)
     if int(outer_stride_test) < 1 or int(outer_stride_ref) < 1:
         raise ValueError("outer strides must be >= 1")
     if N == 0 or M == 0:
         raise ValueError("point sets must have at least one slot")
-    if F > 65535:
-        raise ValueError(f"{F} frame pairs exceed the kernel grid (65535)")
     return F, N, M, K
 
 
@@ -244,18 +191,21 @@ def _cost_table_cuda(
     fn = lib.mm_sweep_cost_f32 if dtype == torch.float32 else lib.mm_sweep_cost_f64
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            test.data_ptr(), ref.data_ptr(),
-            None if dense else test_mask.data_ptr(),
-            None if dense else ref_mask.data_ptr(),
-            angles.data_ptr(), angles_valid.data_ptr(), out.data_ptr(),
-            F, N, M, K, st, sr, int(not dense), stream,
-        )
-    if err != 0:
-        msg = lib.mm_sweep_error_string(err).decode()
-        raise RuntimeError(f"sweep_cost kernel launch failed: {msg} ({err})")
-    launches += 1
-    masked_launches += int(not dense)
+        for f0 in range(0, F, MAX_PAIRS):
+            f1 = min(F, f0 + MAX_PAIRS)
+            err = fn(
+                test[f0:f1].data_ptr(), ref[f0:f1].data_ptr(),
+                None if dense else test_mask[f0:f1].data_ptr(),
+                None if dense else ref_mask[f0:f1].data_ptr(),
+                angles[f0:f1].data_ptr(), angles_valid[f0:f1].data_ptr(),
+                out[f0:f1].data_ptr(), f1 - f0, N, M, K, st, sr,
+                int(not dense), stream,
+            )
+            if err != 0:
+                msg = lib.mm_sweep_error_string(err).decode()
+                raise RuntimeError(f"sweep_cost kernel launch failed: {msg} ({err})")
+            launches += 1
+            masked_launches += int(not dense)
     return out
 
 

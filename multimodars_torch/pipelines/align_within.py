@@ -739,6 +739,28 @@ def assign_aortic(geometry: PyGeometry) -> PyGeometry:
 # main entries
 # ---------------------------------------------------------------------------
 
+def batch_pairs(sets):
+    """Every pullback's consecutive-frame pairs as one batch.
+
+    ``sets``: per pullback, its ``[F, s, 2]`` sample sets and ``[F, s]``
+    mask (None: every slot valid).  The sets are padded to the widest
+    ``s`` and concatenated: returns ``(test, ref, test mask, ref mask)``."""
+    S = max(pts.shape[1] for pts, _ in sets)
+    tests, refs, tmasks, rmasks = [], [], [], []
+    for pts, mask in sets:
+        F, s = pts.shape[:2]
+        pad_pts = np.zeros((F, S, 2), dtype=pts.dtype)
+        pad_pts[:, :s] = pts
+        pad_mask = np.zeros((F, S), dtype=bool)
+        pad_mask[:, :s] = True if mask is None else mask
+        tests.append(pad_pts[1:])
+        refs.append(pad_pts[:-1])
+        tmasks.append(pad_mask[1:])
+        rmasks.append(pad_mask[:-1])
+    return (np.concatenate(tests), np.concatenate(refs),
+            np.concatenate(tmasks), np.concatenate(rmasks))
+
+
 @trace("align_within.batch")
 def align_frames_in_geometries(
     geometries: List[PyGeometry],
@@ -758,31 +780,15 @@ def align_frames_in_geometries(
     its host finish runs on its own.  Returns (geometry, logs, anomalous)
     per input, in input order."""
     packed = [_validate_and_pack(g, sample_size) for g in geometries]
-    S = max(pts.shape[1] for _, _, pts, _ in packed)
-    # every sample slot valid at one width -> the mask-free tables
-    dense = all(
-        (mask is None or bool(mask.all())) and pts.shape[1] == S
-        for _, _, pts, mask in packed
-    )
-    tests, refs, tmasks, rmasks = [], [], [], []
-    for _, _, pts, mask in packed:
-        F, s = pts.shape[:2]
-        pad_pts = np.zeros((F, S, 2), dtype=pts.dtype)
-        pad_pts[:, :s] = pts
-        tests.append(pad_pts[1:])
-        refs.append(pad_pts[:-1])
-        if not dense:
-            pad_mask = np.zeros((F, S), dtype=bool)
-            pad_mask[:, :s] = True if mask is None else mask
-            tmasks.append(pad_mask[1:])
-            rmasks.append(pad_mask[:-1])
+    test, ref, tmask, rmask = batch_pairs([(pts, mask) for _, _, pts, mask in packed])
+    # every sample slot valid (one width, no mask) -> the mask-free tables
+    dense = bool(tmask.all() and rmask.all())
     dtype = config.compute_dtype
     with span("align_within.sweep"):
         flat = multires_rotation_search_packed(
-            to_device(np.concatenate(tests), dtype),
-            to_device(np.concatenate(refs), dtype),
-            None if dense else to_device(np.concatenate(tmasks)),
-            None if dense else to_device(np.concatenate(rmasks)),
+            to_device(test, dtype), to_device(ref, dtype),
+            None if dense else to_device(tmask),
+            None if dense else to_device(rmask),
             float(step_deg), float(range_deg), bool(bruteforce), dense=dense,
         ).cpu().numpy()
     delta_all, ties_all = split_packed(flat)

@@ -360,3 +360,41 @@ def single_processing(
             print(f"Successfully wrote OBJ files for geometry {geom.label} to {output_path}")
 
     return geom, logs
+
+
+@trace("entry.cohort_processing")
+def cohort_processing(
+    input_data: List[InputData],
+    labels: Optional[Sequence[str]] = None,
+    image_center=(4.5, 4.5),
+    radius: float = 0.5,
+    n_points: int = 20,
+    step_deg: float = 0.5,
+    range_deg: float = 90.0,
+    smooth: bool = True,
+    bruteforce: bool = False,
+    sample_size: int = 500,
+    verbose: bool = False,
+):
+    """Register a whole cohort of independent pullbacks in one batched
+    search (no reference counterpart; the JAX package's extension).
+
+    Every pullback's frame pairs concatenate along the batch axis of the
+    rotation search (align_within.align_frames_in_geometries), so one search
+    serves N patients.  Returns a list of (geometry, logs, anomalous)
+    triples in input order."""
+    if not input_data:
+        return []
+    geometries = []
+    for k, inp in enumerate(input_data):
+        label = labels[k] if labels is not None else (inp.label or f"case_{k}")
+        geometries.append(
+            build_any_from_inputdata(
+                inp, None, label, inp.diastole, image_center, radius, n_points,
+                verbose=verbose,
+            )
+        )
+    return align_frames_in_geometries(
+        geometries, step_deg, range_deg, smooth, bruteforce, sample_size,
+        verbose=verbose,
+    )

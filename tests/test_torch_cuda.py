@@ -1,7 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written sweep kernel
 against its plain version (at the single path's and the between search's
-shapes), and the single-pullback and four-phase paths on CUDA against the
-CPU path.  They skip where ``torch.cuda.is_available()`` is false.
+shapes), the centerline refine's Hausdorff kernel against its plain version
+and against numpy's float64 table, and the single-pullback, four-phase and
+centerline paths on CUDA against the CPU path.  They skip where
+``torch.cuda.is_available()`` is false.
 
 The machine with the card has no JAX, so this file imports none and is run
 there without the repository's conftest:
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 import multimodars_torch as mt
+from multimodars_torch.ops import hausdorff_batch as hb
 from multimodars_torch.ops import rotation_search as rs
 from multimodars_torch.ops import sweep
 from multimodars_torch.pipelines import align_between
@@ -236,3 +239,129 @@ def test_full_path_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(l_cuda[:, 2], l_cpu[:, 2], rtol=0.0, atol=1e-12)
     np.testing.assert_allclose(l_cuda[:, 3:], l_cpu[:, 3:], rtol=0.0, atol=1e-9)
     np.testing.assert_allclose(c_cuda, c_cpu, rtol=0.0, atol=1e-9)
+
+
+def _refine_case(S, K, n, m, seed):
+    """Refine-like inputs: candidates and clouds around (200, -200) mm with
+    random masks, one empty candidate and one empty cloud."""
+    rng = np.random.default_rng(seed)
+    p = rng.normal(0.0, 4.0, (S * K, n, 2)) + [200.0, -200.0]
+    q = rng.normal(0.0, 4.0, (S, m, 2)) + [200.0, -200.0]
+    pmask = rng.random((S * K, n)) > 0.1
+    qmask = rng.random((S, m)) > 0.1
+    pmask[1] = False
+    qmask[-1] = False
+    return p, pmask, q, qmask
+
+
+@pytest.mark.parametrize("n, m", [(37, 45), (2500, 1300), (700, 3100)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_hausdorff_kernel_matches_plain(cuda, dtype, n, m):
+    """The shared-reference kernel against its plain version on the same
+    CUDA tensors, masked, with an empty candidate and an empty cloud, and
+    with sets larger than one shared-memory tile (1024 points) and one
+    block's rows (512): equal bit for bit, since both round every
+    operation of d2 and min/max are exact."""
+    S, K = 3, 5
+    p, pmask, q, qmask = _refine_case(S, K, n, m, seed=n + m)
+    args = (torch.tensor(p, dtype=dtype, device=cuda), torch.tensor(pmask, device=cuda),
+            torch.tensor(q, dtype=dtype, device=cuda), torch.tensor(qmask, device=cuda))
+    launches = hb.launches
+    got = hb.hausdorff_sq_shared_ref(*args, K)
+    assert hb.launches == launches + 1
+    want = hb.hausdorff_sq_shared_ref_plain(*args, K)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (S * K,)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[1] == 0.0 and (got[-K:] == 0.0).all() and (got[2:-K] > 0).all()
+
+
+def test_hausdorff_kernel_f64_equals_numpy(cuda):
+    """The kernel's float64 table equals numpy's dx*dx + dy*dy table with
+    exact min and max, bit for bit (the refine's certification relies on
+    it)."""
+    S, K = 2, 3
+    p, pmask, q, qmask = _refine_case(S, K, 900, 1500, seed=1)
+    got = hb.hausdorff_sq_shared_ref(
+        torch.tensor(p, device=cuda), torch.tensor(pmask, device=cuda),
+        torch.tensor(q, device=cuda), torch.tensor(qmask, device=cuda), K,
+    ).cpu().numpy()
+    for c in range(S * K):
+        a, b = p[c][pmask[c]], q[c // K][qmask[c // K]]
+        if len(a) == 0 or len(b) == 0:
+            assert got[c] == 0.0
+            continue
+        dx = a[:, None, 0] - b[None, :, 0]
+        dy = a[:, None, 1] - b[None, :, 1]
+        d2 = dx * dx + dy * dy
+        assert got[c] == max(d2.min(axis=1).max(), d2.min(axis=0).max())
+
+
+def test_hausdorff_kernel_refuses_what_it_cannot_take(cuda):
+    p, pmask, q, qmask = _refine_case(1, 2, 10, 12, seed=2)
+    args = [torch.tensor(a, device=cuda) for a in (p, pmask, q, qmask)]
+    with pytest.raises(ValueError, match="expected cuda"):
+        hb.hausdorff_sq_shared_ref(args[0], args[1].cpu(), args[2], args[3], 2)
+    with pytest.raises(ValueError, match="reference sets"):
+        hb.hausdorff_sq_shared_ref(*args, 3)
+
+
+def _centerline_case():
+    """A 40-frame x 60-point pullback, the vendored RCA centerline, three
+    landmarks on branch 0 and a tube cloud around it: the recipe of
+    tests/test_torch_centerline.py at a larger size."""
+    from pathlib import Path
+
+    vtp = str(Path(__file__).resolve().parent / "data" / "centerlines" / "rca_cl.vtp")
+    rng = np.random.default_rng(3)
+    th = np.linspace(0, 2 * np.pi, 60, endpoint=False)
+    rows = []
+    for f in range(40):
+        r = 1.6 + 0.25 * np.cos(2 * th + 0.2 * f) + 0.05 * rng.standard_normal(60)
+        rows.append(np.stack([np.full(60, f), 4.5 + 0.02 * f + r * np.cos(th),
+                              4.5 - 0.01 * f + r * np.sin(th), np.full(60, 0.3 * f)], -1))
+    lumen, ref = np.concatenate(rows), np.array([0, 6.1, 4.5, 0.0])
+    cl = mt.read_centerline_vtp(vtp)
+    pos = cl.positions()[np.array([p.branch_id for p in cl.points]) == 0]
+    main = pos[150]
+    side = np.cross(pos[151] - pos[149], [0.0, 0.0, 1.0])
+    side *= 1.6 / np.linalg.norm(side)
+    ring = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+    cloud = []
+    for i in range(120, 220):
+        t = pos[i + 1] - pos[i - 1]
+        a = np.cross(t, [0.0, 0.0, 1.0])
+        a /= np.linalg.norm(a)
+        b = np.cross(t / np.linalg.norm(t), a)
+        cloud.append(pos[i] + 1.7 * (np.cos(ring)[:, None] * a + np.sin(ring)[:, None] * b))
+    landmarks = (tuple(main), tuple(main + side), tuple(main - side))
+    return vtp, lumen, ref, landmarks, np.concatenate(cloud)
+
+
+def test_align_combined_on_cuda_matches_cpu(cuda):
+    """align_combined at the wrapper defaults: CUDA f64 equals CPU f64
+    (coordinates to 1e-9 mm) through the refine kernel; CUDA f32 lands on
+    the same (shift, angle) winner, coordinates within 1e-4 mm."""
+    from multimodars_torch.pipelines import centerline_align as ca
+
+    vtp, lumen, ref, landmarks, cloud = _centerline_case()
+
+    def run(device, dtype):
+        geom = mt.numpy_to_geometry(lumen, reference_arr=ref)
+        with mt.config.use(device=device, dtype=dtype):
+            with contextlib.redirect_stdout(io.StringIO()):
+                out, _ = mt.align_combined(mt.read_centerline_vtp(vtp), geom,
+                                           *landmarks, cloud)
+        coords = np.concatenate([f.lumen.xyz_view() for f in out.frames])
+        return coords, ca.refine_report["winner"]
+
+    launches = hb.launches
+    c64, w64 = run(cuda, torch.float64)
+    assert hb.launches > launches
+    c_cpu, w_cpu = run("cpu", torch.float64)
+    assert w64 == w_cpu
+    np.testing.assert_allclose(c64, c_cpu, rtol=0.0, atol=1e-9)
+    c32, w32 = run(cuda, torch.float32)
+    assert w32 == w_cpu
+    np.testing.assert_allclose(c32, c_cpu, rtol=0.0, atol=1e-4)

@@ -18,8 +18,11 @@ sys.modules["jax"] = None  # any import of jax now raises
 import multimodars_torch
 from multimodars_torch.pipelines import align_between, postprocess, to_object
 from multimodars_torch.pipelines.entry import (
-    double_pair_processing, full_processing, pair_processing,
+    cohort_processing, double_pair_processing, full_processing, pair_processing,
 )
+from multimodars_torch.pipelines import centerline_align
+from multimodars_torch.ops import _cuda_build, hausdorff_batch
+from multimodars_torch.parallel import cohort
 for m in pkgutil.walk_packages(multimodars_torch.__path__, "multimodars_torch."):
     __import__(m.name)
 bad = sorted(
@@ -50,6 +53,10 @@ _ENTRY_POINTS = (
     "from_array_singlepair", "from_file_singlepair",
     "from_array_doublepair", "from_file_doublepair",
     "from_array_full", "from_file_full",
+    "from_array_cohort", "align_three_point", "align_manual", "align_combined",
+    "to_obj", "read_centerline_vtp",
+    "to_array", "numpy_to_geometry", "numpy_to_centerline", "numpy_to_inputdata",
+    "array_to_pyinputdata", "geometry_to_frames_array",
 )
 
 
@@ -68,6 +75,22 @@ def test_entry_point_exported_with_jax_signature(name):
     assert [(p.name, p.default) for p in got.values()] == [
         (p.name, p.default) for p in want.values()
     ]
+
+
+_MODEL_CLASSES = (
+    "PyContourPoint", "PyContour", "PyFrame", "PyGeometry", "PyGeometryPair",
+    "PyCenterline", "PyCenterlinePoint", "PyInputData", "PyRecord",
+    "PyContourType",
+)
+
+
+@pytest.mark.parametrize("name", _MODEL_CLASSES)
+def test_model_class_exported(name):
+    import multimodars_torch as mt
+    from multimodars_torch import models
+
+    assert name in mt.__all__
+    assert getattr(mt, name) is getattr(models, name)
 
 
 def test_port_sources_name_no_jax():

@@ -322,3 +322,22 @@ def test_f64_retier_in_f32_config():
     ))
     np.testing.assert_allclose(best, want[:2], rtol=0.0, atol=1e-12)
     np.testing.assert_array_equal(tie, want[2:] > 0.5)
+
+
+@pytest.mark.parametrize(
+    "step, rng_deg, bruteforce", [(0.01, 6.0, False), (0.5, 90.0, True)]
+)
+def test_float32_search_returns_the_float64_grid_values(step, rng_deg, bruteforce):
+    """The grids and the answers stay float64 in a float32 search (only the
+    cost tables take the points' dtype), so where both searches land on the
+    same grid indices the float32 angles equal the float64 ones bit for bit:
+    the float32 run's outputs then carry no rounding of its own."""
+    pts = torch.tensor(_contour_chain(6, 150, seed=5))
+    flat64 = _np(t_rs.chain_rotation_search(pts, None, step, rng_deg, bruteforce))
+    flat32 = _np(t_rs.chain_rotation_search(pts.float(), None, step, rng_deg, bruteforce))
+    assert flat32.dtype == np.float64
+    # the tie codes may differ: a float32 search's band is wider
+    a32, _, c32 = t_repair.split_chain_packed(flat32)
+    a64, _, c64 = t_repair.split_chain_packed(flat64)
+    np.testing.assert_array_equal(a32, a64)
+    np.testing.assert_array_equal(c32, c64)
