@@ -87,6 +87,10 @@ FULL_ARGS = dict(
 )
 FULL_PHASES = (("rest_dia", 7), ("rest_sys", 8), ("stress_dia", 9),
                ("stress_sys", 10))
+# the f32 exact tables' divergence from f64 within 2 bands of the winner, in
+# units eps32*(sqrt(scale2*m)+m), that the certification band was calibrated
+# on (ROADMAP C; the first kernel measured 2.07)
+DIVERGENCE_NEAR_MAX = 2.3
 
 
 class SmokeFailure(Exception):
@@ -108,19 +112,138 @@ def quiet(fn, *args, **kwargs):
 
 
 def cuda_ms(torch, fn, reps):
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    """Milliseconds of one call of ``fn``: CUDA events around ``reps``
+    calls in a row, divided by ``reps``; the median of 3 such windows after
+    a warm-up call."""
     fn()  # warm-up
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[1]
+
+
+def card_state():
+    """The card's SM clock, power draw and temperature now, as nvidia-smi
+    reads them: printed beside kernel times taken just before."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return smi.stdout.strip() if smi.returncode == 0 else "not read"
+
+
+# The bound of a kernel: the larger of its operations over the card's peak
+# rate for their type and its bytes (each input read once, each output
+# written once) over the card's memory rate.  Peaks of one H100 SXM at its
+# 700 W limit (NVIDIA's data sheet):
+# 3.35 TB/s of HBM; 128 FP32 and 64 FP64 lanes per SM at up to 1980 MHz,
+# i.e. the 67 TFLOP/s FP32 (an FMA counted as 2) and its FP64 half.
+HBM_BYTES_PER_S = 3.35e12
+MAX_SM_CLOCK_HZ = 1.98e9
+FP_LANES_PER_SM = {4: 128, 8: 64}
+# one directed point pair: dx, dy (2 sub), dy*dy (1 mul), dx*dx + that
+# (1 FMA), the running min (1)
+OPS_PER_PAIR = 5
+
+
+def bound_ms(torch, pairs, elem_size, nbytes):
+    """(bound in ms, "operations" or "bytes") of ``pairs`` directed point
+    pairs in points of ``elem_size`` bytes, moving ``nbytes``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_s = OPS_PER_PAIR * pairs / (sms * FP_LANES_PER_SM[elem_size] * MAX_SM_CLOCK_HZ)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def sweep_bound(torch, args, kw):
+    """The bound of one cost table on these inputs: per frame pair, its
+    valid angles x (valid strided test rows x valid ref points + valid
+    strided ref rows x valid test points), none for an empty set."""
+    test, ref, tm, rm, angles, valid = args
+    F, N, _ = test.shape
+    M, K = ref.shape[1], angles.shape[1]
+    dense = kw["dense"]
+    if dense:
+        tm = torch.ones((F, N), dtype=torch.bool, device=test.device)
+        rm = torch.ones((F, M), dtype=torch.bool, device=test.device)
+    st, sr = kw["outer_stride_test"], kw["outer_stride_ref"]
+    nt, nr = tm.sum(1), rm.sum(1)
+    pairs = (valid.sum(1) * (tm[:, ::st].sum(1) * nr + rm[:, ::sr].sum(1) * nt)).sum()
+    e = test.element_size()
+    nbytes = F * (N + M) * 2 * e + (0 if dense else F * (N + M)) + F * K * (2 * e + 1)
+    return bound_ms(torch, int(pairs), e, nbytes)
+
+
+def refine_bound(torch, p, pmask, q, qmask, K):
+    """The bound of one refine table: both directions over every valid
+    (candidate point, cloud point) pair, none for an empty set."""
+    nv = pmask.sum(1)
+    mv = qmask.sum(1).repeat_interleave(K)
+    pairs = int((2 * nv * mv).sum())
+    e = p.element_size()
+    nbytes = (p.numel() + q.numel()) * e + pmask.numel() + qmask.numel() + p.shape[0] * e
+    return bound_ms(torch, pairs, e, nbytes)
+
+
+def table_name(torch, args, kw):
+    test, ref, _, _, angles, _ = args
+    st, sr = kw["outer_stride_test"], kw["outer_stride_ref"]
+    return (f"{'f64' if test.dtype == torch.float64 else 'f32'} "
+            f"{'dense' if kw['dense'] else 'masked'} "
+            f"{'exact' if st == sr == 1 else f'stride {st}/{sr}'} "
+            f"[{test.shape[0]}, {test.shape[1]}, {ref.shape[1]}] x K {angles.shape[1]}")
+
+
+@contextlib.contextmanager
+def recorded_tables(sweep):
+    """Record the arguments of every cost table a run asks for."""
+    seen = []
+    table = sweep.cost_table
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return table(*args, **kwargs)
+
+    sweep.cost_table = spy
+    try:
+        yield seen
+    finally:
+        sweep.cost_table = table
+
+
+def report_tables(torch, sweep, path, seen):
+    """Time each distinct cost table of one counted run on the kernel and
+    print its ms, bound, share of the bound and launches per run."""
+    groups = {}
+    for args, kw in seen:
+        kw = dict(dict(dense=False, outer_stride_test=1, outer_stride_ref=1), **kw)
+        key = table_name(torch, args, kw)
+        if key in groups:
+            groups[key][2] += 1
+        else:
+            groups[key] = [args, kw, 1]
+    rows = []
+    for key, (args, kw, n) in groups.items():
+        ms = cuda_ms(torch, lambda: sweep.cost_table(*args, **kw), 5)
+        bound, by = sweep_bound(torch, args, kw)
+        rows.append(dict(path=path, table=key, launches=n, ms=ms, bound_ms=bound))
+        say("tables", f"{path}: {key}: {n} launch(es) per run, kernel {ms:.4f} ms, "
+                      f"bound {bound:.4f} ms ({by}), {100.0 * bound / ms:.1f}% of bound "
+                      f"(card after: {card_state()})")
+    busy = sum(r["ms"] * r["launches"] for r in rows)
+    least = sum(r["bound_ms"] * r["launches"] for r in rows)
+    say("tables", f"{path}: sweep kernel per run {busy:.4f} ms over "
+                  f"{sum(r['launches'] for r in rows)} launches, bound {least:.4f} ms, "
+                  f"{100.0 * least / busy:.1f}% of bound")
 
 
 # ---------------------------------------------------------------------------
@@ -214,12 +337,13 @@ def phase_kernel(torch, sweep, rs):
                 torch.cuda.synchronize()
                 ms = cuda_ms(torch, lambda: sweep.cost_table(*args, **kw), 10)
                 plain_ms = cuda_ms(
-                    torch, lambda: sweep.cost_table_plain(*args, **kw), 3
+                    torch, lambda: sweep.cost_table_plain(*args, **kw), 1
                 )
                 results[(dtype, dense, stride)] = dict(
                     k=k_out.double().cpu().numpy(),
                     p=p_out.double().cpu().numpy(),
                     ms=ms, plain_ms=plain_ms,
+                    bound=sweep_bound(torch, args, kw),
                     scale2=rs._point_scale2(test, ref).double().cpu().numpy(),
                 )
     max_err = 0.0
@@ -234,7 +358,10 @@ def phase_kernel(torch, sweep, rs):
         rel = float((np.abs(k[fin] - p[fin]) / np.maximum(np.abs(p[fin]), 1e-300)).max())
         max_err = max(max_err, err)
         argmin_eq = bool((k.argmin(axis=1) == p.argmin(axis=1)).all())
-        line = (f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+        bound, by = r["bound"]
+        line = (f"{name} [{F}, 520, 520] x K 102: kernel {r['ms']:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}), {100.0 * bound / r['ms']:.1f}% of bound, "
+                f"plain {r['plain_ms']:.3f} ms, "
                 f"max |kernel-plain| {err:.3e} (rel {rel:.3e}), "
                 f"argmin equal {argmin_eq}")
         if dtype == torch.float64:
@@ -266,11 +393,20 @@ def phase_kernel(torch, sweep, rs):
                      f"(= {float(div.max()) / rs._TIE_C:.3f} bands) over all, "
                      f"{float(div[near].max()):.3f} within 2 bands of m; "
                      f"own-cost units max {float(own.max()):.3f}; "
-                     f"plain f32 {float(divp.max()):.3f} units at m")
+                     f"plain f32 {float(divp.max()):.3f} units at m over all, "
+                     f"{float(divp[near].max()):.3f} within 2 bands of m")
+            near_max = float(div[near].max())
         say("kernel", line)
+        if dtype == torch.float32 and stride == 1:
+            # the band's calibration (ROADMAP C) holds near the winner of an
+            # exact table, the one whose argmin the band certifies
+            check(near_max <= DIVERGENCE_NEAR_MAX,
+                  f"{name}: f32 diverges from f64 by {near_max:.3f} units within "
+                  f"2 bands of the winner, more than {DIVERGENCE_NEAR_MAX}")
     headline = results[(torch.float32, True, 1)]
+    bound, by = headline["bound"]
     return dict(max_abs_err=max_err, ms=headline["ms"],
-                plain_ms=headline["plain_ms"])
+                plain_ms=headline["plain_ms"], bound_ms=bound, bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -308,9 +444,10 @@ def phase_main_path(torch, sweep, mt, profile=False):
 
     # the counted run: every launch count set to 0 just before it
     reset_counters(sweep, argmin_repair, trace)
-    t0 = time.perf_counter()
-    geom32, logs32 = run()
-    first_s = time.perf_counter() - t0
+    with recorded_tables(sweep) as tables:
+        t0 = time.perf_counter()
+        geom32, logs32 = run()
+        first_s = time.perf_counter() - t0
     launches = sweep.launches
     spans = trace.summary()
     stats32 = counters()
@@ -350,6 +487,7 @@ def phase_main_path(torch, sweep, mt, profile=False):
         check(abs(want - r32[i]) < 1e-4,
               f"pair {i}: port {r32[i]} deg, exact host ladder {want} deg")
     say("main", "exact host f64 ladder agrees on pairs 0, 69, 139, 208, 278")
+    report_tables(torch, sweep, "single", tables)
 
     for _ in range(2):
         run()
@@ -519,12 +657,18 @@ def between_tables(torch, rs, clouds, dtype, stride):
 
 
 def check_table(torch, sweep, rs, name, args, kw, plain_reps):
-    """Kernel against plain on the same CUDA tensors; returns (max abs err,
-    kernel ms, plain ms)."""
+    """Kernel against plain on the same CUDA tensors, and lower bound
+    against exact where the table is strided; returns (max abs err, kernel
+    ms, plain ms)."""
     import numpy as np
 
     k_out = sweep.cost_table(*args, **kw).double().cpu().numpy()
     p_out = sweep.cost_table_plain(*args, **kw).double().cpu().numpy()
+    if kw["outer_stride_test"] > 1 or kw["outer_stride_ref"] > 1:
+        exact = sweep.cost_table(*args, **dict(kw, outer_stride_test=1,
+                                               outer_stride_ref=1))
+        check((k_out <= exact.double().cpu().numpy()).all(),
+              f"{name}: a lower-bound entry exceeds the exact one")
     ms = cuda_ms(torch, lambda: sweep.cost_table(*args, **kw), 10)
     plain_ms = cuda_ms(torch, lambda: sweep.cost_table_plain(*args, **kw), plain_reps)
     check((np.isinf(k_out) == np.isinf(p_out)).all(), f"{name}: inf slots differ")
@@ -545,16 +689,25 @@ def check_table(torch, sweep, rs, name, args, kw, plain_reps):
         check((diff <= band).all(), f"{name}: kernel differs from plain by more than the band")
     F, N, M, K = sweep.check_inputs(*args, kw["dense"], kw["outer_stride_test"],
                                     kw["outer_stride_ref"])
-    say("full", f"{name} [F {F}, N {N}, M {M}, K {K}]: kernel {ms:.3f} ms, "
+    bound, by = sweep_bound(torch, args, kw)
+    say("full", f"{name} [F {F}, N {N}, M {M}, K {K}]: kernel {ms:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}), {100.0 * bound / ms:.1f}% of bound "
+                f"(card after: {card_state()}), "
                 f"plain {plain_ms:.3f} ms, max |kernel-plain| {err:.3e} "
                 f"(rel {rel:.3e}), argmin equal {argmin_eq}")
     return err, ms, plain_ms
 
 
+# points a side of the f64 table whose launch needs more than the 48 KB of
+# shared memory a block gets without opting in (angle tile 2: 3 x 1200
+# points x 16 bytes)
+WIDE_POINTS = 1200
+
+
 def phase_full_kernel(torch, sweep, rs, mt, clouds):
     """The kernel against plain at the four-phase path's shapes: the masked
     between tables on the recorded stage-1 clouds, the same with the slots'
-    widths made unequal, one f64 table of 640 points (past the 48 KB
+    widths made unequal, one f64 table of 1200 points (past the 48 KB
     default shared-memory limit), and the dense within lower bound over
     the 4 x 279 pairs."""
     import numpy as np
@@ -565,9 +718,9 @@ def phase_full_kernel(torch, sweep, rs, mt, clouds):
 
     uneven = [(clouds[0][0], clouds[0][1][:530]), (clouds[1][0][:520], clouds[1][1])]
     rng = np.random.default_rng(5)
-    ring = np.linspace(0.0, 2 * math.pi, 640, endpoint=False)
+    ring = np.linspace(0.0, 2 * math.pi, WIDE_POINTS, endpoint=False)
     wide = [(np.stack([2.0 * np.cos(ring), 1.4 * np.sin(ring)], -1)
-             + rng.normal(0.0, 0.01, (640, 2)),
+             + rng.normal(0.0, 0.01, (WIDE_POINTS, 2)),
              np.stack([2.0 * np.cos(ring + 0.3), 1.4 * np.sin(ring + 0.3)], -1))
             for _ in range(2)]
     err = 0.0
@@ -579,11 +732,13 @@ def phase_full_kernel(torch, sweep, rs, mt, clouds):
                                       f"{tag} masked {name} stride {stride}",
                                       args, kw, 5)
                 err = max(err, e)
-    smem = sweep._library().mm_sweep_smem_bytes(640, 640, 8, 1)
-    check(smem > 48 * 1024, f"the 640-point f64 masked table needs only {smem} B")
+    smem = sweep.plan_launch(2, WIDE_POINTS, WIDE_POINTS, 362, 1, 1, 8,
+                             torch.cuda.get_device_properties(0).multi_processor_count).smem
+    check(smem > 48 * 1024,
+          f"the {WIDE_POINTS}-point f64 masked table needs only {smem} B")
     args, kw = between_tables(torch, rs, wide, torch.float64, 1)
     e, _, _ = check_table(torch, sweep, rs,
-                          f"f64 masked 640 points ({smem} B shared)", args, kw, 3)
+                          f"f64 masked {WIDE_POINTS} points ({smem} B shared)", args, kw, 1)
     err = max(err, e)
 
     # the dense within lower bound of the full path
@@ -631,7 +786,7 @@ def phase_full_path(torch, sweep, mt, profile=False):
 
     # the counted run: every launch count set to 0 just before it
     reset_counters(sweep, argmin_repair, trace)
-    with recorded_between(align_between) as stages32:
+    with recorded_between(align_between) as stages32, recorded_tables(sweep) as tables:
         t0 = time.perf_counter()
         out32 = run()
         first_s = time.perf_counter() - t0
@@ -704,6 +859,7 @@ def phase_full_path(torch, sweep, mt, profile=False):
     say("full", f"exact host f64 ladder agrees on the four between winners "
                 f"(clouds {[len(c[0]) for c in clouds32]} x {[len(c[1]) for c in clouds32]} "
                 f"points, {time.perf_counter() - t0:.1f} s)")
+    report_tables(torch, sweep, "full", tables)
 
     for _ in range(2):
         run()
@@ -832,7 +988,8 @@ def nearest_exact_sq(a, b, k=8):
 def check_refine_table(torch, hb, dtype, packed, K):
     """The refine kernel against its plain version on the same CUDA tensors
     (equal bit for bit: both round every operation of d2, and min and max
-    are exact); returns (max abs err, kernel ms, plain ms)."""
+    are exact); returns (max abs err, kernel ms, plain ms, (bound ms,
+    bound by))."""
     import numpy as np
 
     dev = torch.device("cuda", 0)
@@ -842,16 +999,18 @@ def check_refine_table(torch, hb, dtype, packed, K):
     k_out = hb.hausdorff_sq_shared_ref(*args, K).double().cpu().numpy()
     p_out = hb.hausdorff_sq_shared_ref_plain(*args, K).double().cpu().numpy()
     ms = cuda_ms(torch, lambda: hb.hausdorff_sq_shared_ref(*args, K), 5)
-    plain_ms = cuda_ms(torch, lambda: hb.hausdorff_sq_shared_ref_plain(*args, K), 2)
+    plain_ms = cuda_ms(torch, lambda: hb.hausdorff_sq_shared_ref_plain(*args, K), 1)
     err = float(np.abs(k_out - p_out).max())
     pairs = 2.0 * p.shape[0] * p.shape[1] * q.shape[1]
+    bound, by = refine_bound(torch, *args, K)
     tag = "f32" if dtype == torch.float32 else "f64"
     say("refine", f"{tag} table [S*K {p.shape[0]}, n {p.shape[1]}, m {q.shape[1]}]: "
-                  f"kernel {ms:.3f} ms ({pairs / ms / 1e9:.2f} T point pairs/s), plain "
+                  f"kernel {ms:.3f} ms ({pairs / ms / 1e9:.2f} T point pairs/s), bound "
+                  f"{bound:.3f} ms ({by}), {100.0 * bound / ms:.1f}% of bound, plain "
                   f"{plain_ms:.3f} ms, max |kernel-plain| {err:.3e}, "
                   f"{int((k_out == 0).sum())} zero entries")
     check(err == 0.0, f"{tag} refine kernel differs from plain")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, (bound, by)
 
 
 def synthetic_refine_tables(S=5, K=31, n=11200, m=11100, seed=13):
@@ -1003,7 +1162,8 @@ def phase_centerline(torch, hb, mt, pair_ab, profile=False):
         profile_main_path(torch, chain, "north_star_profile.json")
         profile_main_path(torch, combined, "align_combined_profile.json")
     return launches, sweep_launches, dict(
-        max_abs_err=max(r[0] for r in res), ms=res[0][1], plain_ms=res[0][2])
+        max_abs_err=max(r[0] for r in res), ms=res[0][1], plain_ms=res[0][2],
+        bound_ms=res[0][3][0], bound_by=res[0][3][1])
 
 
 # ---------------------------------------------------------------------------
@@ -1013,7 +1173,7 @@ def phase_centerline(torch, hb, mt, pair_ab, profile=False):
 COHORT_SEEDS = tuple(range(7, 23))
 
 
-def phase_cohort(torch, sweep, mt, profile=False):
+def phase_cohort(torch, sweep, rs, mt, profile=False):
     import numpy as np
 
     from bench import synthetic_oct_pullback
@@ -1034,9 +1194,10 @@ def phase_cohort(torch, sweep, mt, profile=False):
 
     # the counted run: every launch count set to 0 just before it
     reset_counters(sweep, argmin_repair, trace)
-    t0 = time.perf_counter()
-    cohort = run()
-    first_s = time.perf_counter() - t0
+    with recorded_tables(sweep) as tables:
+        t0 = time.perf_counter()
+        cohort = run()
+        first_s = time.perf_counter() - t0
     launches, masked = sweep.launches, sweep.masked_launches
     stats = {k: argmin_repair.stats.get(k, 0)
              for k in ("flagged", "repaired", "changed", "host_exact")}
@@ -1057,6 +1218,13 @@ def phase_cohort(torch, sweep, mt, profile=False):
     say("cohort", f"grid angles against from_array_single per case: "
                   f"{mismatched} of {n_pairs} pairs differ")
     check(mismatched == 0, "cohort and per-case singles land on different grid angles")
+    report_tables(torch, sweep, "cohort", tables)
+    # the cohort's dense lower bound against plain (the full path's table,
+    # four times the pairs)
+    lb = [(a, k) for a, k in tables if k.get("outer_stride_test", 1) > 1]
+    check(len(lb) >= 1, "the cohort swept no lower-bound table")
+    err, _, _ = check_table(torch, sweep, rs, "f32 dense cohort within stride 6",
+                            lb[0][0], dict(dict(dense=False), **lb[0][1]), 1)
 
     for _ in range(2):
         run()
@@ -1075,7 +1243,7 @@ def phase_cohort(torch, sweep, mt, profile=False):
         for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
     if profile:
         profile_main_path(torch, run, "cohort_profile.json")
-    return launches
+    return launches, err
 
 
 # ---------------------------------------------------------------------------
@@ -1113,7 +1281,7 @@ def main() -> int:
         res = [check_refine_table(torch, hb, dtype, *synthetic_refine_tables())
                for dtype in (torch.float32, torch.float64)]
         hres = dict(max_abs_err=max(r[0] for r in res), ms=res[0][1],
-                    plain_ms=res[0][2])
+                    plain_ms=res[0][2], bound_ms=res[0][3][0], bound_by=res[0][3][1])
     else:
         launches, _ = phase_main_path(torch, sweep, mt, args.profile)
         phase_cross_device(torch, mt)
@@ -1126,7 +1294,9 @@ def main() -> int:
         hb_launches, chain_launches, hres = phase_centerline(
             torch, hb, mt, pair_ab, args.profile)
         launches += chain_launches
-        launches += phase_cohort(torch, sweep, mt, args.profile)
+        cohort_launches, err = phase_cohort(torch, sweep, rs, mt, args.profile)
+        launches += cohort_launches
+        kres["max_abs_err"] = max(kres["max_abs_err"], err)
     for name in sorted(sys.modules):
         if name == "jax" or name.startswith(("jax.", "multimodars_tpu")):
             print(f"FAIL: {name} was imported", flush=True)
@@ -1140,6 +1310,10 @@ def main() -> int:
         "max_abs_err": kres["max_abs_err"],
         "ms": kres["ms"],
         "plain_ms": kres["plain_ms"],
+        "bound_ms": kres["bound_ms"],
+        "bound_by": kres["bound_by"],
+        # no single PyTorch call computes this table
+        "library_ms": None,
     }, {
         "name": "hausdorff_batch",
         "route": "cuda",
@@ -1149,6 +1323,9 @@ def main() -> int:
         "max_abs_err": hres["max_abs_err"],
         "ms": hres["ms"],
         "plain_ms": hres["plain_ms"],
+        "bound_ms": hres["bound_ms"],
+        "bound_by": hres["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -4,9 +4,13 @@ Host-side geometry bookkeeping (centroids, CSV data, the object model) stays
 float64 numpy.  The batched rotation search runs on ``config.device`` in
 ``config.compute_dtype``:
 
-- the device is the first CUDA card when one is present, else the CPU;
-- the compute dtype is ``MMTPU_COMPUTE_DTYPE`` when set, else float32 on
-  CUDA and float64 on the CPU.  float32 searches are certified: flagged
+- the device is the first CUDA card.  There is no silent fallback: without
+  a card the first transfer to the device raises, and a caller who wants
+  the CPU asks for it with ``config.set_device("cpu")`` or
+  ``config.use(device="cpu")``;
+- the compute dtype is the one set with ``set_compute_dtype`` /
+  ``use(dtype=...)``, else ``MMTPU_COMPUTE_DTYPE`` when set, else float32
+  on CUDA and float64 on the CPU.  float32 searches are certified: flagged
   argmins are re-decided by the same kernel in float64, then in exact host
   float64 (``ops.argmin_repair``).
 
@@ -38,7 +42,7 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 def _initial_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device("cuda")
 
 
 def default_dtype_for(device: torch.device) -> torch.dtype:
@@ -53,18 +57,36 @@ class _Config:
 
     def __init__(self):
         self.device = _initial_device()
-        self.compute_dtype = default_dtype_for(self.device)
+        self._dtype = None  # None: the device's default
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        if self._dtype is not None:
+            return self._dtype
+        return default_dtype_for(self.device)
 
     def set_compute_dtype(self, dtype) -> None:
-        self.compute_dtype = torch_dtype(dtype)
+        self._dtype = torch_dtype(dtype)
 
     def set_device(self, device) -> None:
         self.device = torch.device(device)
 
+    def check_device(self) -> torch.device:
+        """``self.device``, or raise ``RuntimeError`` when it is a CUDA
+        device and no card is present."""
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "multimodars_torch runs on the CUDA card by default and found "
+                "none; to run on the CPU, ask for it with "
+                'multimodars_torch.config.set_device("cpu") or '
+                'multimodars_torch.config.use(device="cpu")'
+            )
+        return self.device
+
     @contextlib.contextmanager
     def use(self, device=None, dtype=None):
         """Temporarily run on ``device`` and/or in ``dtype``."""
-        saved = (self.device, self.compute_dtype)
+        saved = (self.device, self._dtype)
         try:
             if device is not None:
                 self.set_device(device)
@@ -72,7 +94,7 @@ class _Config:
                 self.set_compute_dtype(dtype)
             yield self
         finally:
-            self.device, self.compute_dtype = saved
+            self.device, self._dtype = saved
 
 
 config = _Config()

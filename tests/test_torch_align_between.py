@@ -31,6 +31,15 @@ from multimodars_tpu.ops import argmin_repair as j_rep
 from multimodars_tpu.pipelines import align_between as j_ab
 from multimodars_tpu.pipelines import postprocess as j_pp
 
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked otherwise: these tests
+    ask for the CPU."""
+    with mt.config.use(device="cpu"):
+        yield
+
+
 PKGS = {
     "torch": (mt, t_proc, t_build),
     "jax": (mj, j_proc, j_build),

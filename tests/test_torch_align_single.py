@@ -22,6 +22,15 @@ import multimodars_torch as mt
 import multimodars_tpu as mj
 from multimodars_torch.ops import argmin_repair, sweep
 
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked otherwise: these tests
+    ask for the CPU."""
+    with mt.config.use(device="cpu"):
+        yield
+
+
 FIXTURES = Path(__file__).resolve().parent / "data" / "fixtures"
 
 

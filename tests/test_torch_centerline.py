@@ -29,6 +29,15 @@ from multimodars_torch.pipelines import centerline_align as t_ca
 from multimodars_tpu.ops import argmin_repair as j_repair
 from multimodars_tpu.pipelines import centerline_align as j_ca
 
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked otherwise: these tests
+    ask for the CPU."""
+    with mt.config.use(device="cpu"):
+        yield
+
+
 VTP = str(Path(__file__).resolve().parent / "data" / "centerlines" / "rca_cl.vtp")
 PKGS = {"torch": mt, "jax": mj}
 # landmarks: branch-0 point 150 (past the aortic root) and two points

@@ -18,6 +18,15 @@ from multimodars_torch.parallel import (
     cohort_relative_rotations,
 )
 
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked otherwise: these tests
+    ask for the CPU."""
+    with mt.config.use(device="cpu"):
+        yield
+
+
 KW = dict(step_rotation_deg=1.0, range_rotation_deg=10.0, sample_size=40,
           smooth=False)
 

@@ -8,6 +8,15 @@ import pytest
 import multimodars_torch as mt
 import multimodars_tpu as mj
 
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked otherwise: these tests
+    ask for the CPU."""
+    with mt.config.use(device="cpu"):
+        yield
+
+
 PKGS = (mt, mj)
 
 

@@ -177,7 +177,7 @@ def _between_case(widths, seed):
 
 @pytest.mark.parametrize("widths", [
     ((560, 530), (520, 560)),  # two slots, unequal widths near 560 points
-    ((640, 640), (600, 620)),  # above 600 points: past 48 KB of f64 shared memory
+    ((1200, 1180), (1100, 1150)),  # past 48 KB of f64 shared memory
 ])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_matches_plain_at_between_shapes(cuda, widths, dtype):
@@ -210,6 +210,78 @@ def test_kernel_matches_plain_at_between_shapes(cuda, widths, dtype):
             s2f = np.broadcast_to(s2[:, None], want.shape)[fin]
             band = rs._TIE_C * rs._eps_eff(torch.float32) * (np.sqrt(s2f * w) + w)
             assert (np.abs(got[fin] - w) <= band).all()
+
+
+# (F, N, M, K, masked): ragged edges of the launch planner; each runs at
+# outer strides (1, 1), (6, 6) and (1, 6)
+RAGGED = [
+    (1, 50, 60, 1, False),
+    (2, 61, 47, 12, True),
+    (3, 40, 44, 13, True),
+    (2, 33, 52, 102, False),
+    (3, 40, 36, 362, True),
+    (2, 5, 7, 13, True),
+]
+RAGGED_CASES = [(c, d) for c in RAGGED for d in (torch.float64, torch.float32)] + [
+    ((1, 14464, 14464, 2, False), torch.float32),  # the largest square f32 sets
+    ((1, 7232, 7232, 2, True), torch.float64),     # the largest square f64 sets
+]
+
+
+@pytest.mark.parametrize(
+    "case, dtype", RAGGED_CASES,
+    ids=["x".join(map(str, c)) + ("-f64" if d == torch.float64 else "-f32")
+         for c, d in RAGGED_CASES],
+)
+def test_kernel_matches_plain_at_ragged_shapes(cuda, case, dtype):
+    """The redesigned kernel against plain where the planner cuts the work
+    unevenly: f64 to rtol 1e-12 with equal argmins, f32 within the
+    certification band, the same -inf / +inf / 0 slots, and every
+    lower-bound entry at most the exact one, bit for bit."""
+    F, N, M, K, masked = case
+    rng = np.random.default_rng(F * 1000 + N + K)
+    test = rng.standard_normal((F, N, 2))
+    ref = rng.standard_normal((F, M, 2))
+    tmask = rng.random((F, N)) > 0.2
+    rmask = rng.random((F, M)) > 0.2
+    if masked and F > 2:
+        tmask[0] = False  # pair 0: empty test set
+        rmask[1, ::6] = False  # pair 1: no stride-6 row of the ref set
+    angles = rng.uniform(-math.pi, math.pi, (F, K))
+    valid = rng.random((F, K)) > 0.1
+    if F > 1:
+        valid[-1] = False  # an all-invalid angle row
+    args = [torch.tensor(test, dtype=dtype, device=cuda),
+            torch.tensor(ref, dtype=dtype, device=cuda),
+            torch.tensor(tmask, device=cuda) if masked else None,
+            torch.tensor(rmask, device=cuda) if masked else None,
+            torch.tensor(angles, dtype=dtype, device=cuda),
+            torch.tensor(valid, device=cuda)]
+    s2 = np.maximum((test ** 2).sum(-1).max(-1), (ref ** 2).sum(-1).max(-1))
+    tables = {}
+    for st, sr in ((1, 1), (6, 6), (1, 6)):
+        kw = dict(dense=not masked, outer_stride_test=st, outer_stride_ref=sr)
+        got = sweep.cost_table(*args, **kw)
+        want = sweep.cost_table_plain(*args, **kw)
+        torch.cuda.synchronize()
+        got = got.double().cpu().numpy()
+        want = want.double().cpu().numpy()
+        tables[(st, sr)] = got
+        for v in (np.inf, -np.inf, 0.0):
+            assert ((got == v) == (want == v)).all(), v
+        fin = np.isfinite(want)
+        if dtype == torch.float64:
+            np.testing.assert_allclose(got[fin], want[fin], rtol=1e-12, atol=0.0)
+            rows = np.isfinite(want).any(axis=1)
+            assert (got[rows].argmin(axis=1) == want[rows].argmin(axis=1)).all()
+        else:
+            w = want[fin]
+            s2f = np.broadcast_to(s2[:, None], want.shape)[fin]
+            band = rs._TIE_C * rs._eps_eff(torch.float32) * (np.sqrt(s2f * w) + w)
+            assert (np.abs(got[fin] - w) <= band).all()
+    exact = tables[(1, 1)]
+    for lb in (tables[(6, 6)], tables[(1, 6)]):
+        assert (lb <= exact).all()
 
 
 def test_full_path_on_cuda_matches_cpu(cuda):

@@ -18,6 +18,15 @@ import torch
 import multimodars_torch as mt
 import multimodars_tpu as mj
 
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked otherwise: these tests
+    ask for the CPU."""
+    with mt.config.use(device="cpu"):
+        yield
+
+
 FIXTURES = Path(__file__).resolve().parent / "data" / "fixtures"
 
 
@@ -161,6 +170,57 @@ def test_catheter_start_roll_follows_the_last_ulp(monkeypatch):
     got = _quiet(mt.from_array_singlepair, *_make_datas(mt, n=2, seed=5),
                  write_obj=False)
     _assert_result_close(got, want, 1)
+
+
+def test_start_roll_pairs_follow_the_exact_ladder(monkeypatch):
+    """The start-roll divergence above is one between the JAX package's own
+    two tiers (ROADMAP C): wherever the port's within angle differs from
+    the JAX fallback orchestration's, the JAX package's exact host f64
+    ladder (``argmin_repair.exact_ladder``), run on the centred sets the
+    port searched, returns the port's angle."""
+    from multimodars_tpu.ops.argmin_repair import exact_ladder
+    from multimodars_tpu.pipelines import align_within as j_aw
+
+    from multimodars_torch.pipelines import align_within as t_aw
+
+    j_deltas, t_deltas, t_sets = [], [], []
+    j_finish = j_aw._finish_alignment_tensor_coords
+    t_finish = t_aw._finish_alignment_tensor
+    t_search = t_aw.multires_rotation_search_packed
+
+    def j_spy(tg, delta, *args, **kwargs):
+        j_deltas.append(np.array(delta, dtype=np.float64))
+        return j_finish(tg, delta, *args, **kwargs)
+
+    def t_spy(tg, delta, *args, **kwargs):
+        t_deltas.append(np.array(delta, dtype=np.float64))
+        return t_finish(tg, delta, *args, **kwargs)
+
+    def search_spy(test, ref, tmask, rmask, *args, **kwargs):
+        t_sets.append(tuple(None if x is None else x.cpu().numpy()
+                            for x in (test, ref, tmask, rmask)))
+        return t_search(test, ref, tmask, rmask, *args, **kwargs)
+
+    monkeypatch.setattr(j_aw, "_finish_alignment_tensor_coords", j_spy)
+    monkeypatch.setattr(t_aw, "_finish_alignment_tensor", t_spy)
+    monkeypatch.setattr(t_aw, "multires_rotation_search_packed", search_spy)
+    _jax(monkeypatch, "fallback", mj.from_array_singlepair,
+         *_make_datas(mj, n=2, seed=5), write_obj=False)
+    _quiet(mt.from_array_singlepair, *_make_datas(mt, n=2, seed=5),
+           write_obj=False)
+
+    assert len(t_sets) == 1  # one batched within search over both pullbacks
+    test, ref, tmask, rmask = t_sets[0]
+    port, jax_ = np.concatenate(t_deltas), np.concatenate(j_deltas)
+    assert port.shape == jax_.shape == (test.shape[0],)
+    differ = np.nonzero(port != jax_)[0]
+    assert len(differ) > 0
+    for i in differ:
+        t = test[i] if tmask is None else test[i][tmask[i]]
+        r = ref[i] if rmask is None else ref[i][rmask[i]]
+        exact = exact_ladder(t.astype(np.float64), r.astype(np.float64),
+                             0.5, 90.0, False)
+        assert abs(exact - port[i]) <= 1e-15, (i, exact, port[i], jax_[i])
 
 
 @pytest.mark.parametrize("postprocessing", [False, True])

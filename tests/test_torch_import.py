@@ -110,7 +110,8 @@ def test_config_policy():
     # tests/conftest.py pins MMTPU_COMPUTE_DTYPE=float64 for the process
     assert os.environ.get("MMTPU_COMPUTE_DTYPE") == "float64"
     assert default_dtype_for(torch.device("cuda")) == torch.float64
-    assert config.device.type == ("cuda" if torch.cuda.is_available() else "cpu")
+    # the card is the default whether or not one is present
+    assert config.device == torch.device("cuda")
     assert torch_dtype("float32") is torch.float32
     assert torch_dtype(np.float64) is torch.float64
     with pytest.raises(ValueError):
@@ -123,11 +124,17 @@ def test_config_policy():
 
 
 def test_config_defaults_without_env(monkeypatch):
-    from multimodars_torch.config import default_dtype_for
+    from multimodars_torch.config import config, default_dtype_for
 
     monkeypatch.delenv("MMTPU_COMPUTE_DTYPE")
     assert default_dtype_for(torch.device("cuda")) == torch.float32
     assert default_dtype_for(torch.device("cpu")) == torch.float64
+    # a dtype nobody set follows the device asked for
+    assert config.compute_dtype == torch.float32
+    with config.use(device="cpu"):
+        assert config.compute_dtype == torch.float64
+        with config.use(dtype="float32"):
+            assert config.compute_dtype == torch.float32
 
 
 def test_to_device_is_contiguous_in_dtype():
@@ -135,6 +142,58 @@ def test_to_device_is_contiguous_in_dtype():
     from multimodars_torch.utils.device import to_device
 
     a = np.zeros((4, 6, 3))[:, ::2, :2]  # a strided view
-    t = to_device(a, torch.float32)
-    assert t.is_contiguous() and t.dtype == torch.float32
-    assert t.device == config.device and tuple(t.shape) == (4, 3, 2)
+    with config.use(device="cpu"):
+        t = to_device(a, torch.float32)
+        assert t.is_contiguous() and t.dtype == torch.float32
+        assert t.device == config.device and tuple(t.shape) == (4, 3, 2)
+
+
+def _tiny_pullback(n_frames=4, n_points=24):
+    theta = np.linspace(0.0, 2.0 * np.pi, n_points, endpoint=False)
+    rows = []
+    for f in range(n_frames):
+        x = 4.5 + (2.0 + 0.05 * f) * np.cos(theta + 0.02 * f)
+        y = 4.5 + 1.4 * np.sin(theta + 0.02 * f)
+        rows.append(np.stack(
+            [np.full(n_points, f), x, y, np.full(n_points, 0.2 * f)], -1))
+    return np.concatenate(rows), np.array([0, 7.5, 4.5, 0.0])
+
+
+def test_no_card_and_no_ask_raises(monkeypatch):
+    """Without a card and without an explicit ask for the CPU, an entry
+    point raises at its first transfer instead of running on the CPU."""
+    import multimodars_torch as mt
+    from multimodars_torch.utils.device import to_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mt.config.device == torch.device("cuda")
+    with pytest.raises(RuntimeError, match=r'set_device\("cpu"\)'):
+        to_device(np.zeros(3))
+    lumen, ref = _tiny_pullback()
+    data = mt.numpy_to_inputdata(lumen, ref, True)
+    with pytest.raises(RuntimeError, match="found none"):
+        mt.from_array_single(data, step_rotation_deg=1.0,
+                             range_rotation_deg=5.0, write_obj=False)
+
+
+@pytest.mark.parametrize("ask", ["set_device", "use"])
+def test_cpu_runs_when_asked(monkeypatch, ask):
+    """Asked for the CPU (either way the policy names), the same call runs
+    there, and the default comes back afterwards."""
+    import multimodars_torch as mt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lumen, ref = _tiny_pullback()
+    kw = dict(step_rotation_deg=1.0, range_rotation_deg=5.0, write_obj=False)
+    data = mt.numpy_to_inputdata(lumen, ref, True)
+    if ask == "set_device":
+        mt.config.set_device("cpu")
+        try:
+            geom, logs = mt.from_array_single(data, **kw)
+        finally:
+            mt.config.set_device("cuda")
+    else:
+        with mt.config.use(device="cpu"):
+            geom, logs = mt.from_array_single(data, **kw)
+    assert len(logs) == 3 and len(geom.frames) == 4
+    assert mt.config.device == torch.device("cuda")

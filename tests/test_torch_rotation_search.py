@@ -15,11 +15,21 @@ import torch
 
 import jax.numpy as jnp
 
+import multimodars_torch as mt
 from multimodars_torch.ops import argmin_repair as t_repair
 from multimodars_torch.ops import rotation_search as t_rs
 from multimodars_torch.ops import sweep
 from multimodars_tpu.ops import argmin_repair as j_repair
 from multimodars_tpu.ops import rotation_search as j_rs
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked otherwise: these tests
+    ask for the CPU."""
+    with mt.config.use(device="cpu"):
+        yield
+
 
 _N_SYM = 72  # 5-degree symmetry
 
