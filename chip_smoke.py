@@ -4,14 +4,15 @@
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 It builds the hand-written kernels from ``multimodars_torch/csrc`` (the
-rotation sweep's cost table and the centerline refine's Hausdorff table, one
-``nvcc`` each, started together), holds each against its plain PyTorch
-version at the shapes the main paths give it, drives the port's
-single-pullback path (``from_array_single`` on a
-280-frame, 500-point pullback at step 0.01 deg / range 6 deg, the
-reference's headline protocol) and its four-phase path (``from_array_full``
-on four such pullbacks at the canonical step 0.5 deg / range 90 deg), its
-centerline registration and its cohort entry, and checks what comes out.
+rotation sweep's cost table, the centerline refine's Hausdorff table, and
+the CCTA toolkit's radius count, nearest pick and morph sweep; one ``nvcc``
+each, started together), holds each against its plain PyTorch version at
+the shapes the main paths give it, drives the port's single-pullback path
+(``from_array_single`` on a 280-frame, 500-point pullback at step 0.01 deg /
+range 6 deg, the reference's headline protocol) and its four-phase path
+(``from_array_full`` on four such pullbacks at the canonical step 0.5 deg /
+range 90 deg), its centerline registration, its cohort entry and its CCTA
+mesh fusion, and checks what comes out.
 Phases:
 
 1. environment: card name and power limit, torch/CUDA versions, kernel builds
@@ -48,12 +49,21 @@ Phases:
    pullbacks (4464 pairs in one batch) at step 0.5 deg / range 90 deg in
    f32: the same grid angle in every pair as ``from_array_single`` per
    case, launches counted, pullbacks/s (median of 5 after 2 warm-ups)
+8. CCTA mesh fusion on the card: ``label`` -> ``scale`` -> ``stitch`` with
+   the CCTA fusion benchmark's arguments on its synthetic anomalous-RCA
+   case at scale 3 (57,606 vertices, 115,200 faces), in f32 (launches of
+   the radius count, nearest pick and morph sweep kernels counted, the
+   certification counts of ``ccta.kernels.stats``), in f64 on the card and
+   in f64 on the CPU: the same region index sets and scalings and the same
+   stitched mesh (0.0 mm) in all three; each kernel against its plain
+   version on the run's recorded inputs, f32 and f64, with ms, bound, share
+   and calls per run; wall clock (median of 5 after 2 warm-ups) and spans
 
 Every phase prints its lines; any failure exits non-zero.  The line before
 the last is the kernel summary JSON, the last line is
 ``{"ok": true, "device": {...}}``.  ``--only kernel`` stops after phase 2
-and holds the refine kernel against plain on refine-shaped inputs from a
-seed;
+and holds the refine kernel and the three CCTA kernels against plain on
+inputs of their main-path shapes from a seed;
 ``--profile`` adds a torch.profiler breakdown of one steady run of each
 main path.
 """
@@ -250,7 +260,7 @@ def report_tables(torch, sweep, path, seen):
 # phase 1
 # ---------------------------------------------------------------------------
 
-def phase_environment(torch, sweep, hb):
+def phase_environment(torch, sweep, hb, ccta_ops):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -263,22 +273,24 @@ def phase_environment(torch, sweep, hb):
     from multimodars_torch.ops import _cuda_build
 
     t0 = time.perf_counter()
-    _cuda_build.compile_sources([(sweep.SOURCE, "sweep"), (hb.SOURCE, "hausdorff_batch")])
-    sweep._library()
-    hb._library()
+    mods = [sweep, hb, *ccta_ops]
+    _cuda_build.compile_sources([(m.SOURCE, m.SOURCE.stem) for m in mods])
+    for m in mods:
+        m._library()
     say("env", f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, (built, log) in sorted(_cuda_build.reports.items()):
         say("env", f"{name}: nvcc build {built:.2f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say("env", "ptxas: " + line.strip())
-    # the host I/O and finish steps of the main path use native/libmmio.so
-    # when it builds, else their pure-Python versions: say which path runs
+    # the host I/O, finish and ray steps use the port's build of
+    # native/mmio.cpp when it builds, else their pure-Python versions: say
+    # which path runs
     from multimodars_torch.io import native
 
     t0 = time.perf_counter()
     lib = quiet(native.get_library)
-    say("env", f"native I/O library (native/libmmio.so): "
+    say("env", f"native I/O library ({native.library_path().name}): "
                f"{'loaded' if lib is not None else 'unavailable, pure-Python host paths'}"
                f" in {time.perf_counter() - t0:.2f} s")
 
@@ -1247,6 +1259,443 @@ def phase_cohort(torch, sweep, rs, mt, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+# the CCTA fusion benchmark's synthetic anomalous-RCA case at scale 3: the
+# 57,606-vertex, 115,200-face clinical size of the reference's fullworkflow
+# (CHANGELOG.md:30-38); built here from copies of the benchmark's helpers
+CCTA_SCALE = 3
+CCTA_VERTICES, CCTA_FACES = 57606, 115200
+CCTA_RCA_P0 = (30.0, 0.0, 14.0)
+CCTA_RCA_P1 = (22.0, -2.0, -8.0)
+# FP operations per point pair: the count's d2 (3 sub, 3 mul, 2 add) and 2
+# compare-accumulates; the nearest pick's d2, a min, a select and a
+# runner-up update; the sweep's one d2 per (offset, pair) serving both
+# directions and its two minima
+CCTA_OPS_PER_PAIR = {"radius_count": 10, "nearest": 11, "morph_sweep": 10}
+CCTA_REPLACES = {
+    "radius_count": "multimodars_tpu/ccta/kernels.py:95",
+    "nearest": "multimodars_tpu/ccta/kernels.py:73",
+    "morph_sweep": "multimodars_tpu/ccta/kernels.py:2183",
+}
+
+
+def _basis_from_tangent(t):
+    import numpy as np
+
+    t = t / np.linalg.norm(t)
+    helper = np.array([0.0, 0.0, 1.0])
+    if abs(np.dot(t, helper)) > 0.9:
+        helper = np.array([0.0, 1.0, 0.0])
+    u = np.cross(t, helper)
+    u /= np.linalg.norm(u)
+    v = np.cross(t, u)
+    return u, v
+
+
+def _tube_mesh(mesh_cls, centers, radius, n_ring):
+    """Closed triangulated tube along a polyline of ring centers."""
+    import numpy as np
+
+    centers = np.asarray(centers, dtype=np.float64)
+    n_slices = len(centers)
+    verts = []
+    for i, c in enumerate(centers):
+        if i == 0:
+            t = centers[1] - centers[0]
+        elif i == n_slices - 1:
+            t = centers[-1] - centers[-2]
+        else:
+            t = centers[i + 1] - centers[i - 1]
+        u, v = _basis_from_tangent(t)
+        for k in range(n_ring):
+            th = 2.0 * math.pi * k / n_ring
+            verts.append(c + radius * (math.cos(th) * u + math.sin(th) * v))
+    faces = []
+    for i in range(n_slices - 1):
+        a0, b0 = i * n_ring, (i + 1) * n_ring
+        for k in range(n_ring):
+            k1 = (k + 1) % n_ring
+            faces.append([a0 + k, b0 + k, b0 + k1])
+            faces.append([a0 + k, b0 + k1, a0 + k1])
+    verts = np.asarray(verts)
+    faces = np.asarray(faces, dtype=np.int64)
+    start_c = len(verts)
+    verts = np.vstack([verts, centers[0], centers[-1]])
+    last0 = (n_slices - 1) * n_ring
+    cap = []
+    for k in range(n_ring):
+        k1 = (k + 1) % n_ring
+        cap.append([start_c, k1, k])
+        cap.append([start_c + 1, last0 + k, last0 + k1])
+    return mesh_cls(verts, np.vstack([faces, np.asarray(cap, dtype=np.int64)]))
+
+
+def _line(p0, p1, n):
+    import numpy as np
+
+    return np.linspace(np.asarray(p0, float), np.asarray(p1, float), n)
+
+
+def ccta_case(mt):
+    """(mesh, aorta / RCA / LCA centerline arrays, IV geometry) of the
+    benchmark's build_case(CCTA_SCALE)."""
+    import numpy as np
+
+    scale = CCTA_SCALE
+    from multimodars_torch.ccta.mesh import Mesh, concatenate
+
+    mesh = concatenate([
+        _tube_mesh(Mesh, _line((36, 0, 0), (36, 0, 20), 40 * scale), 6.0, 64 * scale),
+        _tube_mesh(Mesh, _line(CCTA_RCA_P0, CCTA_RCA_P1, 60 * scale), 1.4, 32 * scale),
+        _tube_mesh(Mesh, _line((42, 0, 14), (50, 2, -8), 60 * scale), 1.4, 32 * scale),
+    ])
+    mesh.fix_normals()  # what read_geometrical.read_mesh does on load
+    cl_ao = _line((36, 0, 20), (36, 0, 0), 50)
+    cl_rca = _line(CCTA_RCA_P0, CCTA_RCA_P1, 60)
+    cl_lca = _line((42, 0, 14), (50, 2, -8), 60)
+    p0, p1 = np.asarray(CCTA_RCA_P0), np.asarray(CCTA_RCA_P1)
+    axis = p1 - p0
+    u, v = _basis_from_tangent(axis)
+    lumen_rows, wall_rows = [], []
+    n_pts = 64 * scale
+    for f, t in enumerate(np.linspace(0.42, 0.62, 12)):
+        c = p0 + t * axis
+        for k in range(n_pts):
+            th = 2.0 * math.pi * k / n_pts
+            d = math.cos(th) * u + math.sin(th) * v
+            lumen_rows.append([f, *(c + 1.2 * d)])
+            wall_rows.append([f, *(c + 1.7 * d)])
+    geom = mt.numpy_to_geometry(np.asarray(lumen_rows), wall_arr=np.asarray(wall_rows),
+                                label="iv")
+    geom.frames[0].lumen.aortic_thickness = 1.0
+    return mesh, cl_ao, cl_rca, cl_lca, geom
+
+
+@contextlib.contextmanager
+def recorded_scalings(manipulating):
+    """Record the scalings the scale stage finds (proximal, distal, aortic)."""
+    seen = []
+    dp, ao = manipulating.find_distal_and_proximal_scaling, manipulating.find_aorta_scaling
+
+    def spy_dp(*args, **kwargs):
+        out = dp(*args, **kwargs)
+        seen.extend(out)
+        return out
+
+    def spy_ao(*args, **kwargs):
+        out = ao(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    manipulating.find_distal_and_proximal_scaling = spy_dp
+    manipulating.find_aorta_scaling = spy_ao
+    try:
+        yield seen
+    finally:
+        manipulating.find_distal_and_proximal_scaling = dp
+        manipulating.find_aorta_scaling = ao
+
+
+@contextlib.contextmanager
+def recorded_ccta_calls():
+    """Record the arguments of every call of the three CCTA kernel
+    wrappers."""
+    from multimodars_torch.ops import morph_sweep, nearest, radius_count
+
+    seen = []
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (radius_count, "radius_count"), (nearest, "nearest"), (morph_sweep, "morph_sweep"))]
+    for mod, name, fn in saved:
+        def spy(*args, _fn=fn, _name=name, **kwargs):
+            seen.append((_name, args, kwargs))
+            return _fn(*args, **kwargs)
+        setattr(mod, name, spy)
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def ccta_run(torch, mt, case):
+    """label -> scale -> stitch with the benchmark's arguments (and its
+    fix-up of an empty rca_removed_points); returns (region index arrays of
+    the labelled and scaled results, scalings, stitched mesh)."""
+    import numpy as np
+
+    from multimodars_torch.ccta import manipulating, regions
+
+    mesh, cl_ao, cl_rca, cl_lca, geom = case
+    with recorded_scalings(manipulating) as scalings:
+        results, (rca_cl, _lca_cl, ao_cl) = quiet(
+            mt.label, mesh.copy(), cl_ao, cl_rca, cl_lca, aligned_frames=geom.frames,
+            anomalous_rca=True, control_plot=False,
+        )
+        if not results["rca_removed_points"]:
+            ao = np.asarray(results["aorta_points"])
+            near = np.linalg.norm(ao - np.asarray(CCTA_RCA_P0), axis=1) < 5.0
+            results["rca_removed_points"] = [tuple(p) for p in ao[near][:100]]
+        labelled = {k: regions.get_idx(results, k) for k in regions.REGION_KEYS if k in results}
+        scaled = quiet(mt.scale, results, rca_cl, ao_cl, geom.frames)
+        scaled_idx = {k: regions.get_idx(scaled, k) for k in regions.REGION_KEYS if k in scaled}
+        stitched = quiet(mt.stitch, scaled, geom, region_remove=("anomalous_points",),
+                         prox_start_mode="nearest_iv", dist_start_mode="nearest_iv",
+                         n_points_iv_cont=64 * CCTA_SCALE)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return labelled, scaled_idx, list(scalings), stitched["mesh"]
+
+
+def ccta_pairs(name, args, kwargs):
+    """Point pairs one kernel call evaluates (offsets x pairs for the sweep)."""
+    if name == "morph_sweep":
+        points, _unit, reference, xs = args
+        return points.shape[0] * reference.shape[0] * xs.shape[0]
+    return args[0].shape[0] * args[1].shape[0]
+
+
+def ccta_bound(torch, name, args, kwargs):
+    """(bound ms, "operations" or "bytes") of one kernel call: its FP
+    operations over the card's lanes, or its bytes (inputs once, outputs
+    once) over the memory rate."""
+    e = args[0].element_size()
+    if name == "morph_sweep":
+        points, _unit, reference, xs = args
+        nbytes = (2 * points.shape[0] + reference.shape[0]) * 3 * e + 3 * xs.shape[0] * e
+    elif name == "nearest":
+        nbytes = (args[0].shape[0] + args[1].shape[0]) * 3 * e + args[0].shape[0] * (2 * e + 8)
+    else:
+        flags = kwargs.get("flags", len(args) > 4 and args[4])
+        nbytes = (args[0].shape[0] + args[1].shape[0]) * 3 * e + args[0].shape[0] * (1 if flags else 8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_s = (CCTA_OPS_PER_PAIR[name] * ccta_pairs(name, args, kwargs)
+             / (sms * FP_LANES_PER_SM[e] * MAX_SM_CLOCK_HZ))
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def ccta_key(torch, name, args, kwargs):
+    dt = "f64" if args[0].dtype == torch.float64 else "f32"
+    shapes = " x ".join(str(list(a.shape)) for a in args if hasattr(a, "shape"))
+    flags = " flags" if name == "radius_count" and kwargs.get("flags") else ""
+    return f"{name} {dt} {shapes}{flags}"
+
+
+def check_ccta_call(torch, name, args, kwargs, plain_reps=1):
+    """One kernel call against its plain version on the same inputs:
+    counts, flags and nearest picks equal exactly (minima are exact in both
+    dtypes), sweep sums equal to the kernel-ordered plain sums exactly and
+    to plain's own order within rel 1e-12 (f64) / 1e-4 (f32).  Returns
+    (max abs error against plain, kernel ms, plain ms)."""
+    import numpy as np
+
+    from multimodars_torch.ops import morph_sweep, nearest, radius_count
+
+    mod = {"radius_count": radius_count, "nearest": nearest, "morph_sweep": morph_sweep}[name]
+    plain = {"radius_count": radius_count.radius_count_plain,
+             "nearest": nearest.nearest_plain,
+             "morph_sweep": morph_sweep.morph_sweep_plain}[name]
+    kernel = getattr(mod, name)
+    if name == "radius_count" and args[0].dtype == torch.float32:
+        # the wrapper rounds the band edges to float32; plain gets the same
+        r2lo, r2hi = (float(torch.tensor(v, dtype=torch.float32)) for v in args[2:4])
+        plain_args = (args[0], args[1], r2lo, r2hi, *args[4:])
+    else:
+        plain_args = args
+    saved = mod.launches
+    got = kernel(*args, **kwargs)
+    want = plain(*plain_args, **kwargs)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    if name == "morph_sweep":
+        ordered = morph_sweep.morph_sweep_ordered(*args)
+        rtol = 1e-12 if args[0].dtype == torch.float64 else 1e-4
+        for g, o, w in zip(got, ordered, want):
+            check(torch.equal(g, o), f"{name}: kernel sums differ from its order's plain sums")
+            g, w = g.double().cpu().numpy(), w.double().cpu().numpy()
+            err = max(err, float(np.abs(g - w).max()))
+            check(np.allclose(g, w, rtol=rtol, atol=0.0), f"{name}: sums beyond rel {rtol}")
+    else:
+        for g, w in zip(got, want):
+            check(torch.equal(g.cpu(), w.cpu()), f"{name}: kernel differs from plain")
+    ms = cuda_ms(torch, lambda: kernel(*args, **kwargs), 5)
+    mod.launches = saved  # launches made to compare with plain do not count
+    pms = cuda_ms(torch, lambda: plain(*plain_args, **kwargs), plain_reps)
+    return err, ms, pms
+
+
+def report_ccta_calls(torch, calls, launches):
+    """Check and time each distinct kernel call of the counted run; print
+    each one's ms, bound, share and calls per run.  Returns per kernel the
+    numbers of its largest call (by bound) and its max abs error."""
+    groups = {}
+    for name, args, kwargs in calls:
+        key = ccta_key(torch, name, args, kwargs)
+        groups.setdefault(key, [name, args, kwargs, 0])[3] += 1
+    out = {}
+    per_run = {}
+    for key, (name, args, kwargs, n) in sorted(groups.items()):
+        pairs = ccta_pairs(name, args, kwargs)
+        err, ms, pms = check_ccta_call(torch, name, args, kwargs,
+                                       plain_reps=1 if pairs > 5e7 else 3)
+        bound, by = ccta_bound(torch, name, args, kwargs)
+        say("ccta-tables", f"{key}: {n} call(s) per run, kernel {ms:.4f} ms, plain "
+                           f"{pms:.3f} ms, bound {bound:.5f} ms ({by}), "
+                           f"{100.0 * bound / ms:.1f}% of bound, {pairs:.3e} pairs")
+        row = per_run.setdefault(name, [0.0, 0.0, 0])
+        row[0] += ms * n
+        row[1] += bound * n
+        row[2] += n
+        best = out.get(name)
+        if best is None or bound > best["bound_ms"]:
+            out[name] = dict(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                             args=args, shape=key, max_abs_err=0.0)
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    for name, (ms, bound, n) in sorted(per_run.items()):
+        say("ccta-tables", f"{name}: {n} calls ({launches.get(name, 0)} launches) per run, "
+                           f"kernel {ms:.4f} ms, bound {bound:.5f} ms, "
+                           f"{100.0 * bound / ms:.1f}% of bound (card after: {card_state()})")
+    # the nearest pick's yardstick: one PyTorch call on its largest inputs
+    a, b = out["nearest"]["args"][:2]
+    out["nearest"]["library_ms"] = cuda_ms(
+        torch, lambda: torch.cdist(a, b).pow(2).min(1), 5)
+    say("ccta-tables", f"nearest yardstick torch.cdist(a, b).pow(2).min(1) on "
+                       f"{out['nearest']['shape']}: {out['nearest']['library_ms']:.4f} ms")
+    return out
+
+
+def synthetic_ccta_calls(torch):
+    """Kernel calls at phase 8's shapes on seeded inputs, f32 and f64: the
+    island count (17,000 x 40,000 within 2 mm), the bounded flags (57,606
+    x 60), a morph's nearest pick (25,000 x 50) and a sweep (750 x 576 x 41)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda", 0)
+    calls = []
+    for dtype in (torch.float32, torch.float64):
+        def t(shape, scale=12.0):
+            return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device=dev)
+        unit = torch.nn.functional.normalize(t((750, 3)), dim=1)
+        xs = torch.tensor(-2.0 + 0.1 * np.arange(41), dtype=dtype, device=dev)
+        calls += [
+            ("radius_count", (t((17000, 3)), t((40000, 3)), 3.999, 4.001), {}),
+            ("radius_count", (t((57606, 3)), t((60, 3)), 8.999, 9.001), {"flags": True}),
+            ("nearest", (t((25000, 3)), t((50, 3))), {}),
+            ("morph_sweep", (t((750, 3)), unit, t((576, 3)), xs), {}),
+        ]
+    return calls
+
+
+def phase_ccta(torch, mt, profile=False):
+    import numpy as np
+
+    from multimodars_torch.ccta import kernels as ck
+    from multimodars_torch.ops import morph_sweep, nearest, radius_count
+    from multimodars_torch.utils import trace
+
+    t0 = time.perf_counter()
+    case = ccta_case(mt)
+    mesh = case[0]
+    say("ccta", f"case built in {time.perf_counter() - t0:.2f} s: "
+                f"{len(mesh.vertices)} vertices, {len(mesh.faces)} faces, "
+                f"{len(case[4].frames)} IV frames x {len(case[4].frames[0].lumen.points)} points")
+    check((len(mesh.vertices), len(mesh.faces)) == (CCTA_VERTICES, CCTA_FACES),
+          "the case is not the 57,606-vertex benchmark mesh")
+    mods = {"radius_count": radius_count, "nearest": nearest, "morph_sweep": morph_sweep}
+
+    # the counted run: every launch count set to 0 just before it
+    for mod in mods.values():
+        mod.launches = 0
+    ck.reset_stats()
+    trace.reset()
+    with recorded_ccta_calls() as calls:
+        t0 = time.perf_counter()
+        run32 = ccta_run(torch, mt, case)
+        first_s = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in mods.items()}
+    stats32 = {k: dict(v) for k, v in ck.stats.items()}
+    say("ccta", f"f32 first run {first_s:.3f} s; launches {launches}; "
+                f"certification {stats32}")
+    for name, n in launches.items():
+        check(n > 0, f"the CCTA path launched no {name} kernel")
+    sizes = {k: len(v) for k, v in run32[1].items()}
+    say("ccta", f"regions after scale: {sizes}; scalings (proximal, distal, aortic) "
+                f"{run32[2]}; stitched {len(run32[3].vertices)} vertices, "
+                f"{len(run32[3].faces)} faces")
+    check(np.isfinite(run32[3].vertices).all() and len(run32[3].faces) > 0,
+          "the stitched mesh is empty or not finite")
+    check(all(np.isfinite(x) for x in run32[2]) and len(run32[2]) == 3,
+          f"scalings {run32[2]}")
+
+    ck.reset_stats()
+    with mt.config.use(dtype=torch.float64):
+        run64 = ccta_run(torch, mt, case)
+    stats64 = {k: dict(v) for k, v in ck.stats.items()}
+    t0 = time.perf_counter()
+    with mt.config.use(device="cpu", dtype=torch.float64):
+        run_cpu = ccta_run(torch, mt, case)
+    cpu_s = time.perf_counter() - t0
+    for other, label in ((run64, "f64 card"), (run_cpu, "f64 CPU")):
+        same_regions = all(
+            a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+            for a, b in ((run32[0], other[0]), (run32[1], other[1])))
+        d = (float(np.abs(run32[3].vertices - other[3].vertices).max())
+             if run32[3].vertices.shape == other[3].vertices.shape else float("inf"))
+        same_faces = np.array_equal(run32[3].faces, other[3].faces)
+        say("ccta", f"f32 card vs {label}: same region index sets {same_regions}, "
+                    f"scalings {run32[2]} vs {other[2]}, same stitched faces {same_faces}, "
+                    f"max |stitched vertex diff| {d:.3e} mm")
+        check(same_regions, f"f32 card and {label} label different regions")
+        check(run32[2] == other[2], f"f32 card and {label} find different scalings")
+        check(same_faces and d == 0.0, f"f32 card and {label} stitch different meshes")
+    say("ccta", f"f64 card certification {stats64}; f64 CPU run {cpu_s:.3f} s")
+
+    kres = report_ccta_calls(torch, calls, launches)
+    # the f64 kernels against plain on the f64 run's own inputs
+    with mt.config.use(dtype=torch.float64), recorded_ccta_calls() as calls64:
+        saved = {name: mod.launches for name, mod in mods.items()}
+        ccta_run(torch, mt, case)
+        for name, mod in mods.items():
+            mod.launches = saved[name]
+    seen = set()
+    for name, args, kwargs in calls64:
+        key = ccta_key(torch, name, args, kwargs)
+        if key in seen:
+            continue
+        seen.add(key)
+        err, _, _ = check_ccta_call(torch, name, args, kwargs, plain_reps=1)
+        kres[name]["max_abs_err"] = max(kres[name]["max_abs_err"], err)
+    say("ccta", f"f64 kernels against plain on {len(seen)} distinct f64 calls: equal "
+                f"(counts and picks exactly, sums to rel 1e-12)")
+
+    def run():
+        return ccta_run(torch, mt, case)
+
+    for _ in range(2):
+        run()
+    trace.reset()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[2]
+    say("ccta", f"label -> scale -> stitch wall clock f32, median of 5 after 2 warm-ups: "
+                f"{med:.4f} s (runs {', '.join(f'{t:.4f}' for t in times)})")
+    say("ccta", "spans per run, mean of those runs (s, calls): " + ", ".join(
+        f"{k} {v[0] / 5:.4f} (x{v[1] // 5})"
+        for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
+    if profile:
+        profile_main_path(torch, run, "ccta_profile.json")
+    return launches, kres
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1269,12 +1718,13 @@ def main() -> int:
 
     import multimodars_torch as mt
     from multimodars_torch.ops import hausdorff_batch as hb
+    from multimodars_torch.ops import morph_sweep, nearest, radius_count
     from multimodars_torch.ops import rotation_search as rs
     from multimodars_torch.ops import sweep
 
     # a failed check raises SmokeFailure out of main(): the traceback names
     # the phase and the process exits non-zero
-    phase_environment(torch, sweep, hb)
+    phase_environment(torch, sweep, hb, (radius_count, nearest, morph_sweep))
     kres = phase_kernel(torch, sweep, rs)
     launches = hb_launches = None
     if args.only == "kernel":
@@ -1282,6 +1732,8 @@ def main() -> int:
                for dtype in (torch.float32, torch.float64)]
         hres = dict(max_abs_err=max(r[0] for r in res), ms=res[0][1],
                     plain_ms=res[0][2], bound_ms=res[0][3][0], bound_by=res[0][3][1])
+        ccta_launches = {}
+        cres = report_ccta_calls(torch, synthetic_ccta_calls(torch), ccta_launches)
     else:
         launches, _ = phase_main_path(torch, sweep, mt, args.profile)
         phase_cross_device(torch, mt)
@@ -1297,6 +1749,7 @@ def main() -> int:
         cohort_launches, err = phase_cohort(torch, sweep, rs, mt, args.profile)
         launches += cohort_launches
         kres["max_abs_err"] = max(kres["max_abs_err"], err)
+        ccta_launches, cres = phase_ccta(torch, mt, args.profile)
     for name in sorted(sys.modules):
         if name == "jax" or name.startswith(("jax.", "multimodars_tpu")):
             print(f"FAIL: {name} was imported", flush=True)
@@ -1326,7 +1779,21 @@ def main() -> int:
         "bound_ms": hres["bound_ms"],
         "bound_by": hres["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"multimodars_torch/csrc/{name}.cu",
+        "replaces": CCTA_REPLACES[name],
+        "launches": ccta_launches.get(name),
+        "max_abs_err": cres[name]["max_abs_err"],
+        "ms": cres[name]["ms"],
+        "plain_ms": cres[name]["plain_ms"],
+        "bound_ms": cres[name]["bound_ms"],
+        "bound_by": cres[name]["bound_by"],
+        # no single PyTorch call computes the counts or the sweep;
+        # torch.cdist(a, b).pow(2).min(1) is the nearest pick's yardstick
+        "library_ms": cres[name].get("library_ms"),
+    } for name in ("radius_count", "nearest", "morph_sweep")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 Parity: ``multimodars/_converters.py`` of the reference.  Row convention for
 contour layers is ``[frame_index, x, y, z]``; centerlines are ``(N, 3)``.
 The JAX package's converters take the same arrays, so both packages are fed
-identical inputs.  ``geometry_to_trimesh`` waits for the CCTA slice of the
-port (its mesh type).
+identical inputs.  ``geometry_to_trimesh`` returns the port's own
+:class:`multimodars_torch.ccta.mesh.Mesh`.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from .models.centerline import PyCenterline
 from .models.contour import PyContour
 from .models.frame import PyFrame
 from .models.geometry import PyGeometry, PyGeometryPair
-from .models.point import PyContourPoint
+from .models.point import PyContourPoint, PyContourType
 from .models.record import PyInputData, PyRecord
 
 
@@ -464,3 +464,52 @@ def array_to_pyinputdata(
 def geometry_to_frames_array(geometry: PyGeometry) -> Dict[str, Dict[str, np.ndarray]]:
     """Per-frame dict of layer arrays.  Parity: _converters.py:967-1015."""
     return {str(frame.id): _frame_to_numpy(frame) for frame in geometry.frames}
+
+
+def geometry_to_trimesh(geometry: PyGeometry, contour_type=None):
+    """Closed tube mesh over one contour type's stacked rings (two triangles
+    per quad, outward-oriented).  Parity: _converters.py:1018-1088 but
+    returning the package-native Mesh."""
+    from .ccta.mesh import Mesh
+
+    if contour_type is None:
+        contour_type = PyContourType.Lumen
+    name = contour_type.name if isinstance(contour_type, PyContourType) else str(contour_type)
+    if name == "Lumen":
+        contours = geometry.get_lumen_contours()
+    else:
+        contours = geometry.get_contours_by_type(name)
+    if len(contours) < 2:
+        raise ValueError("Need at least two contours to build a mesh.")
+
+    n = len(contours[0].points)
+    vertices = np.concatenate(
+        [np.asarray(c.xyz_view(), dtype=np.float64) for c in contours], axis=0
+    )
+    # quad strip between consecutive rings, same (i, j, [abd, bcd]) order as
+    # the scalar loop
+    i_ = np.arange(len(contours) - 1, dtype=np.int64)[:, None]
+    j_ = np.arange(n, dtype=np.int64)[None, :]
+    j1 = (j_ + 1) % n
+    a = i_ * n + j_
+    b = i_ * n + j1
+    c = (i_ + 1) * n + j1
+    d = (i_ + 1) * n + j_
+    faces = np.stack(
+        [np.stack([a, b, d], axis=-1), np.stack([b, c, d], axis=-1)], axis=2
+    ).reshape(-1, 3)
+    mesh = Mesh(vertices, faces)
+
+    first_centroid = np.asarray(contours[0].centroid, dtype=np.float64)
+    first_face_center = mesh.triangles_center[0]
+    first_normal = mesh.face_normals[0]
+    if np.dot(first_normal, first_face_center - first_centroid) < 0:
+        mesh.faces = mesh.faces[:, ::-1]
+        mesh._invalidate()
+    # the uniform quad-strip pattern is consistently wound by construction
+    # (every shared edge is traversed once in each direction: b-d within a
+    # quad, ring-neighbour and row-neighbour edges across quads), and the
+    # whole-mesh flip above preserves that — certify it so the stitch's
+    # fix_normals skips the full winding BFS on the tube
+    mesh._oriented = True
+    return mesh

@@ -637,3 +637,34 @@ def from_array_cohort(
         sample_size=sample_size,
         verbose=verbose,
     )
+
+
+def find_centerline_bounded_points_simple(centerline, points, radius: float):
+    """Mesh points within ``radius`` of any centerline point."""
+    from .ccta.kernels import find_centerline_bounded_points_simple as _f
+
+    return _f(centerline, points, radius)
+
+
+def find_proximal_distal_scaling(
+    anomalous_points,
+    n_proximal: int,
+    n_distal: int,
+    centerline,
+    proximal_reference,
+    distal_reference,
+):
+    """Optimal proximal/distal morphing scalings (grid sweep)."""
+    from .ccta.kernels import find_proximal_distal_scaling as _f
+
+    return _f(
+        anomalous_points, n_proximal, n_distal, centerline,
+        proximal_reference, distal_reference,
+    )
+
+
+def build_adjacency_map(faces):
+    """Vertex adjacency map from mesh faces."""
+    from .ccta.kernels import build_adjacency_map as _f
+
+    return _f(faces)

@@ -1,51 +1,74 @@
 """ctypes bindings for the native I/O library (native/mmio.cpp).
 
 The shared object is not distributed (committed binaries are
-unauditable); it is compiled from source on first use with the in-tree
-Makefile — announced on stderr, disable with MMTPU_NATIVE_BUILD=never or
-prebuild with ``make -C native``.  Every entry point degrades gracefully
-to the pure-Python implementation when the library is missing or the
-toolchain is unavailable.
+unauditable).  This package compiles its own copy from ``native/mmio.cpp``
+with ``g++`` and the flags of ``native/Makefile`` at first use, announced on
+stderr (disable with MMTPU_NATIVE_BUILD=never).  The library goes into the
+git-ignored ``multimodars_torch/_build/``, named by a hash of the source and
+the flags, as the CUDA kernels do (:mod:`multimodars_torch.ops._cuda_build`).
+A build writes a temporary file and renames it into place, under an
+exclusive ``flock`` on ``_build/libmmio.lock``, so processes that start
+together build it once and never load a half-written file.  Every entry
+point degrades gracefully to the pure-Python implementation when the
+library cannot be built (no ``g++``) or loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
+import sys
 import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-_LIB_PATH = _NATIVE_DIR / "libmmio.so"
+_SOURCE = Path(__file__).resolve().parents[2] / "native" / "mmio.cpp"
+#: where the library is built; a test may point it elsewhere before the
+#: first :func:`get_library` call of a process
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+# native/Makefile's CXXFLAGS: -ffp-contract=off keeps the finish-path
+# kernels bit-identical to their numpy versions
+CXXFLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-Wall", "-ffp-contract=off"]
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
 
-def _build_library() -> bool:
-    if os.environ.get("MMTPU_NATIVE_BUILD", "auto") == "never":
-        return False
-    try:
-        import sys
+def library_path() -> Path:
+    tag = hashlib.sha256(_SOURCE.read_bytes() + " ".join(CXXFLAGS).encode())
+    return BUILD_DIR / f"libmmio_{tag.hexdigest()[:16]}.so"
 
-        print(
-            f"[multimodars_torch] building native I/O library from "
-            f"{_NATIVE_DIR}/mmio.cpp (one-time; set MMTPU_NATIVE_BUILD=never "
-            f"to use the pure-Python paths instead)",
-            file=sys.stderr,
-        )
-        subprocess.run(
-            ["make", "-s"],
-            cwd=_NATIVE_DIR,
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return _LIB_PATH.exists()
+
+def _build_library(path: Path) -> bool:
+    """Make sure ``path`` exists: build it unless another process already
+    has.  The flock serialises concurrent builds; the rename publishes a finished
+    file only."""
+    if os.environ.get("MMTPU_NATIVE_BUILD", "auto") == "never":
+        return path.exists()
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "libmmio.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if path.exists():  # built while this process waited
+                return True
+            print(
+                f"[multimodars_torch] building native I/O library from "
+                f"{_SOURCE} (one-time; set MMTPU_NATIVE_BUILD=never "
+                f"to use the pure-Python paths instead)",
+                file=sys.stderr,
+            )
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            subprocess.run(
+                ["g++", *CXXFLAGS, "-o", str(tmp), str(_SOURCE)],
+                check=True, capture_output=True, timeout=120,
+            )
+            os.replace(tmp, path)
+            return True
     except Exception:
         return False
 
@@ -59,18 +82,15 @@ def get_library() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _load_failed:
             return _lib
-        stale = (
-            _LIB_PATH.exists()
-            and (_NATIVE_DIR / "mmio.cpp").exists()
-            and (_NATIVE_DIR / "mmio.cpp").stat().st_mtime
-            > _LIB_PATH.stat().st_mtime
-        )
-        if (not _LIB_PATH.exists() or stale) and not _build_library():
-            if not _LIB_PATH.exists():
-                _load_failed = True
-                return None
+        if not _SOURCE.exists():
+            _load_failed = True
+            return None
+        path = library_path()
+        if not path.exists() and not _build_library(path):
+            _load_failed = True
+            return None
         try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            lib = ctypes.CDLL(str(path))
             lib.mm_read_contour_csv.argtypes = [
                 ctypes.c_char_p,
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
@@ -108,49 +128,27 @@ def get_library() -> Optional[ctypes.CDLL]:
                 ctypes.POINTER(ctypes.c_uint8),
             ]
             lib.mm_fix_winding.restype = None
-            try:  # absent in a pre-round-4 libmmio.so: callers fall back
-                lib.mm_fix_winding_ordered.argtypes = [
-                    ctypes.POINTER(ctypes.c_int64),
-                    ctypes.c_int64,
-                    ctypes.POINTER(ctypes.c_int64),
-                    ctypes.POINTER(ctypes.c_uint8),
-                ]
-                lib.mm_fix_winding_ordered.restype = None
-            except AttributeError:
-                pass
             _dp = ctypes.POINTER(ctypes.c_double)
             _ip = ctypes.POINTER(ctypes.c_int64)
-            try:  # absent in a pre-round-3 libmmio.so: callers fall back
-                lib.mm_finish_roll.argtypes = [
-                    _dp, _dp, _dp, _dp, _dp, _dp, _dp, _dp,
-                    ctypes.c_int, ctypes.c_int, _dp, _ip,
-                    ctypes.c_int64, ctypes.c_int64,
-                ]
-                lib.mm_finish_roll.restype = None
-                lib.mm_wall_offset.argtypes = [
-                    _dp, _dp, _dp, ctypes.c_int64, ctypes.c_int64,
-                ]
-                lib.mm_wall_offset.restype = None
-                lib.mm_farthest_pair.argtypes = [
-                    _dp, ctypes.c_int64, _ip, _ip, _dp,
-                ]
-                lib.mm_farthest_pair.restype = None
-            except AttributeError:
-                pass
-            try:  # absent in a pre-round-4 libmmio.so
-                lib.mm_min_sqdist_cols.argtypes = [
-                    _dp, ctypes.c_int64, _dp, ctypes.c_int64, _dp, _ip,
-                ]
-                lib.mm_min_sqdist_cols.restype = None
-            except AttributeError:
-                pass
-            try:  # absent in a pre-round-4 libmmio.so
-                lib.mm_ccw_sort.argtypes = [
-                    _dp, _dp, _dp, _ip, ctypes.c_int64, ctypes.c_int64,
-                ]
-                lib.mm_ccw_sort.restype = None
-            except AttributeError:
-                pass
+            # the library is built from the checkout's source, so every
+            # symbol below exists
+            lib.mm_fix_winding_ordered.argtypes = [_ip, ctypes.c_int64, _ip,
+                                                   ctypes.POINTER(ctypes.c_uint8)]
+            lib.mm_fix_winding_ordered.restype = None
+            lib.mm_finish_roll.argtypes = [
+                _dp, _dp, _dp, _dp, _dp, _dp, _dp, _dp,
+                ctypes.c_int, ctypes.c_int, _dp, _ip,
+                ctypes.c_int64, ctypes.c_int64,
+            ]
+            lib.mm_finish_roll.restype = None
+            lib.mm_wall_offset.argtypes = [_dp, _dp, _dp, ctypes.c_int64, ctypes.c_int64]
+            lib.mm_wall_offset.restype = None
+            lib.mm_farthest_pair.argtypes = [_dp, ctypes.c_int64, _ip, _ip, _dp]
+            lib.mm_farthest_pair.restype = None
+            lib.mm_min_sqdist_cols.argtypes = [_dp, ctypes.c_int64, _dp, ctypes.c_int64, _dp, _ip]
+            lib.mm_min_sqdist_cols.restype = None
+            lib.mm_ccw_sort.argtypes = [_dp, _dp, _dp, _ip, ctypes.c_int64, ctypes.c_int64]
+            lib.mm_ccw_sort.restype = None
             _lib = lib
         except OSError:
             _load_failed = True
@@ -179,8 +177,6 @@ def read_contour_csv_native(path) -> Optional[np.ndarray]:
     finally:
         lib.mm_free(data_ptr)
     if skipped.value:
-        import sys
-
         print(f"Skipping {skipped.value} invalid record(s)", file=sys.stderr)
     return arr
 
@@ -264,9 +260,9 @@ def fix_winding_ordered_native(faces: np.ndarray, order: np.ndarray):
     edge keys in block slot layout (``Mesh._edge_keys_sorted``'s cached
     order).  Bit-identical flips to :func:`fix_winding_native` — the BFS
     tail is shared and pair order is key order either way.  None when the
-    library lacks the symbol (pre-round-4 build)."""
+    library is unavailable."""
     lib = get_library()
-    if lib is None or not hasattr(lib, "mm_fix_winding_ordered"):
+    if lib is None:
         return None
     faces = np.ascontiguousarray(faces, dtype=np.int64)
     order = np.ascontiguousarray(order, dtype=np.int64)
@@ -300,12 +296,12 @@ def finish_roll_native(
     library — bit-identical to the numpy pass in
     :meth:`TensorGeometry.finish_transform`.
 
-    Returns ``(out, roll_start)`` or ``None`` when the library (or the
-    symbol, for a stale build) is unavailable.  ``xyz`` must be a
+    Returns ``(out, roll_start)`` or ``None`` when the library is
+    unavailable.  ``xyz`` must be a
     C-contiguous float64 [F, N, 3] block; per-frame params are float64 [F].
     """
     lib = get_library()
-    if lib is None or not hasattr(lib, "mm_finish_roll"):
+    if lib is None:
         return None
     F, N = xyz.shape[:2]
     ct, st, cx, cy, dx, dy, dz = (
@@ -334,7 +330,7 @@ def wall_offset_native(src: np.ndarray):
     ``src`` must be a C-contiguous float64 [F, N, 3] block.
     """
     lib = get_library()
-    if lib is None or not hasattr(lib, "mm_wall_offset"):
+    if lib is None:
         return None
     F, N = src.shape[:2]
     out = np.empty_like(src)
@@ -347,11 +343,11 @@ def ccw_sort_native(xyz: np.ndarray, ang: np.ndarray):
     """CCW contour sort of one [F, N, 3] f64 stack from caller-computed
     angles: stable angle argsort (numpy tie/NaN order) rolled to the last
     highest-y point, coordinates gathered in the same pass.  Returns
-    ``(sorted_xyz, order)`` or ``None`` when the library lacks the symbol.
+    ``(sorted_xyz, order)`` or ``None`` when the library is unavailable.
     ``ang`` must contain no NaN (the caller gates — NaN-angle geometries
     keep the numpy path's argmax-over-NaN start semantics)."""
     lib = get_library()
-    if lib is None or not hasattr(lib, "mm_ccw_sort"):
+    if lib is None:
         return None
     F, N = ang.shape
     out = np.empty_like(xyz)
@@ -371,7 +367,7 @@ def min_sqdist_cols_native(a64: np.ndarray, b64: np.ndarray):
     Returns ``(mins, args)`` or ``None`` when unavailable.  Both inputs
     must be C-contiguous float64 [n, 3] / [m, 3]."""
     lib = get_library()
-    if lib is None or not hasattr(lib, "mm_min_sqdist_cols"):
+    if lib is None:
         return None
     mins = np.empty(len(a64), dtype=np.float64)
     args = np.empty(len(a64), dtype=np.int64)
@@ -387,7 +383,7 @@ def farthest_pair_native(xyz: np.ndarray):
     order (i-outer / j-inner, strict >), or ``None`` when the library is
     unavailable.  ``xyz`` must be C-contiguous float64 [n, 3]."""
     lib = get_library()
-    if lib is None or not hasattr(lib, "mm_farthest_pair"):
+    if lib is None:
         return None
     i = ctypes.c_int64()
     j = ctypes.c_int64()

@@ -437,3 +437,126 @@ def test_align_combined_on_cuda_matches_cpu(cuda):
     c32, w32 = run(cuda, torch.float32)
     assert w32 == w_cpu
     np.testing.assert_allclose(c32, c_cpu, rtol=0.0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the CCTA toolkit's kernels: radius count, nearest pick, morph sweep
+# ---------------------------------------------------------------------------
+
+from multimodars_torch.ops import morph_sweep as msw  # noqa: E402
+from multimodars_torch.ops import nearest as nst  # noqa: E402
+from multimodars_torch.ops import radius_count as rct  # noqa: E402
+
+CLOUD_SIZES = [(0, 5), (5, 0), (1, 1), (127, 129), (128, 128), (129, 1025),
+               (1025, 127), (513, 1), (57606, 129), (129, 57606)]
+
+
+def _cloud(n, seed, lattice=True):
+    """Points on a 0.25 mm lattice (exact ties and exact radius hits) with
+    some duplicated, or Gaussian points."""
+    rng = np.random.default_rng(seed)
+    if lattice:
+        pts = rng.integers(-40, 40, (n, 3)) * 0.25
+        if n > 4:
+            pts[-3:] = pts[:3]
+        return pts.astype(np.float64)
+    return rng.standard_normal((n, 3)) * 5.0
+
+
+@pytest.mark.parametrize("n, m", CLOUD_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_radius_count_kernel_matches_plain(cuda, n, m, dtype):
+    """Counts and flags are integers: kernel = plain exactly, both dtypes,
+    with the band edges on lattice distances (r^2 = 1 +- 1/16)."""
+    a = torch.tensor(_cloud(n, n + 1), dtype=dtype, device=cuda)
+    b = torch.tensor(_cloud(m, m + 2), dtype=dtype, device=cuda)
+    for flags in (False, True):
+        launches = rct.launches
+        got = rct.radius_count(a, b, 1.0 - 1.0 / 16, 1.0 + 1.0 / 16, flags=flags)
+        want = rct.radius_count_plain(a, b, 1.0 - 1.0 / 16, 1.0 + 1.0 / 16, flags=flags)
+        torch.cuda.synchronize()
+        assert rct.launches == launches + (1 if n and m else 0)
+        for g, w in zip(got if not flags else (got,), want if not flags else (want,)):
+            assert torch.equal(g.cpu(), w.cpu())
+        if not flags and n * m >= 100_000:
+            assert int(got[1].sum()) > 0  # the band saw pairs
+
+
+@pytest.mark.parametrize("n, m", [c for c in CLOUD_SIZES if c[1] > 0])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_nearest_kernel_matches_plain(cuda, n, m, dtype):
+    """Minima are exact: (m1, idx, m2) equal plain bit for bit in both
+    dtypes, first-wins on the lattice's ties, m2 = m1 on duplicates."""
+    a = torch.tensor(_cloud(n, n + 3), dtype=dtype, device=cuda)
+    b = torch.tensor(_cloud(m, m + 4), dtype=dtype, device=cuda)
+    launches = nst.launches
+    got = nst.nearest(a, b)
+    want = nst.nearest_plain(a, b)
+    torch.cuda.synchronize()
+    assert nst.launches == launches + (1 if n else 0)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("n, m", [(1, 1), (127, 129), (128, 1025), (129, 1),
+                                  (513, 300), (57606, 129), (300, 57606)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_morph_sweep_kernel_matches_plain(cuda, n, m, dtype):
+    """The sums equal the kernel-ordered plain sums bit for bit in both
+    dtypes; against plain's own order, float64 within rel 1e-12 and float32
+    within rel 1e-4 (sums of up to 57,606 minima in another order)."""
+    rng = np.random.default_rng(n + m)
+    p = rng.standard_normal((n, 3)) * 3.0
+    u = rng.standard_normal((n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    r = rng.standard_normal((m, 3)) * 3.0
+    xs = -2.0 + 0.1 * np.arange(41)
+    args = [torch.tensor(x, dtype=dtype, device=cuda) for x in (p, u, r, xs)]
+    launches = msw.launches
+    got = msw.morph_sweep(*args)
+    ordered = msw.morph_sweep_ordered(*args)
+    plain = msw.morph_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert msw.launches == launches + 1
+    rtol = 1e-12 if dtype == torch.float64 else 1e-4
+    for g, o, w in zip(got, ordered, plain):
+        assert torch.equal(g.cpu(), o.cpu())
+        np.testing.assert_allclose(g.double().cpu().numpy(), w.double().cpu().numpy(),
+                                   rtol=rtol, atol=0.0)
+
+
+def test_ccta_kernels_refuse_what_they_cannot_take(cuda):
+    a = torch.zeros((4, 3), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="expected cuda"):
+        rct.radius_count(a, torch.zeros((4, 3), dtype=torch.float64), 1.0, 2.0)
+    with pytest.raises(ValueError, match="at least one point"):
+        nst.nearest(a, a[:0])
+    with pytest.raises(ValueError, match="dtype"):
+        msw.morph_sweep(a, a, a.float(), a[:, 0])
+
+
+def test_ccta_slice_on_cuda_matches_cpu(cuda):
+    """label -> scale -> stitch on the 6,406-vertex case: CUDA f32 and f64
+    give the CPU f64 regions, scalings and stitched mesh exactly, through
+    all three kernels."""
+    import ccta_case
+    from multimodars_torch.ccta import regions
+
+    def run(device, dtype):
+        with mt.config.use(device=device, dtype=dtype):
+            with contextlib.redirect_stdout(io.StringIO()):
+                return ccta_case.run_slice(mt, 1)
+
+    launches = (rct.launches, nst.launches, msw.launches)
+    want = run("cpu", torch.float64)
+    assert (rct.launches, nst.launches, msw.launches) == launches
+    for dtype in (torch.float64, torch.float32):
+        got = run(cuda, dtype)
+        for g, w in zip(got[:2], want[:2]):
+            for key in regions.REGION_KEYS:
+                if key in w:
+                    assert np.array_equal(regions.get_idx(g, key), regions.get_idx(w, key)), key
+        assert np.array_equal(got[2]["mesh"].faces, want[2]["mesh"].faces)
+        assert np.array_equal(got[2]["mesh"].vertices, want[2]["mesh"].vertices)
+    assert rct.launches > launches[0] and nst.launches > launches[1]
+    assert msw.launches > launches[2]

@@ -17,6 +17,7 @@ import torch
 
 import multimodars_torch as mt
 import multimodars_tpu as mj
+from native_route import native_route  # noqa: F401  (fixture)
 
 
 @pytest.fixture(autouse=True)
@@ -276,8 +277,9 @@ def _split_obj(data):
 
 
 @pytest.mark.parametrize("mode", ["full", "doublepair", "singlepair"])
-def test_write_obj_matches_jax(tmp_path, mode):
-    """``write_obj=True``.
+def test_write_obj_matches_jax(tmp_path, mode, native_route):
+    """``write_obj=True``, with both packages pinned to one writer route:
+    the native library's (the port's build) or the Python writer's.
 
     The port's writer is the JAX package's: given the port's pairs, the JAX
     package's ``process_case`` writes byte-identical OBJ, MTL and PNG files.
