@@ -567,6 +567,7 @@ def profile_main_path(torch, run, trace_name):
     for key, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         say("profile", f"{us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
     check(busy_us > 0, f"the profile of {trace_name} holds no device event")
+    return by_name
 
 
 # ---------------------------------------------------------------------------
@@ -1279,6 +1280,21 @@ CCTA_REPLACES = {
     "nearest": "multimodars_tpu/ccta/kernels.py:73",
     "morph_sweep": "multimodars_tpu/ccta/kernels.py:2183",
 }
+# the wrappers a run calls, each with its kernel: one pair, or a batch of
+# pairs in one launch
+CCTA_WRAPPERS = {
+    "radius_count": "radius_count", "radius_count_batch": "radius_count",
+    "nearest": "nearest", "nearest_batch": "nearest", "morph_sweep": "morph_sweep",
+}
+# the case's certification work, (rows, flagged, changed) per primitive of
+# ccta.kernels.stats: what every run of this case has shown, in float32 and,
+# where the float64 run's rows may differ (fewer sweep offsets re-evaluated),
+# (flagged, changed) in float64
+CCTA_CERTIFICATION_F32 = {"radius_count": (198050, 86, 48), "nearest": (70322, 567, 246),
+                          "morph_sweep": (123, 3, 0)}
+CCTA_CERTIFICATION_F64 = {"radius_count": (0, 0), "nearest": (432, 2)}
+# count launches of one run: 3 count calls of 2 pairs, 3 flags calls
+CCTA_COUNT_LAUNCHES_MAX = 6
 
 
 def _basis_from_tangent(t):
@@ -1400,13 +1416,14 @@ def recorded_scalings(manipulating):
 
 @contextlib.contextmanager
 def recorded_ccta_calls():
-    """Record the arguments of every call of the three CCTA kernel
-    wrappers."""
+    """Record the arguments of every call of the CCTA kernel wrappers, the
+    batched entries included."""
     from multimodars_torch.ops import morph_sweep, nearest, radius_count
 
     seen = []
-    saved = [(mod, name, getattr(mod, name)) for mod, name in (
-        (radius_count, "radius_count"), (nearest, "nearest"), (morph_sweep, "morph_sweep"))]
+    mods = {"radius_count": radius_count, "nearest": nearest, "morph_sweep": morph_sweep}
+    saved = [(mods[kernel], name, getattr(mods[kernel], name))
+             for name, kernel in CCTA_WRAPPERS.items()]
     for mod, name, fn in saved:
         def spy(*args, _fn=fn, _name=name, **kwargs):
             seen.append((_name, args, kwargs))
@@ -1448,29 +1465,48 @@ def ccta_run(torch, mt, case):
     return labelled, scaled_idx, list(scalings), stitched["mesh"]
 
 
+def ccta_sets(name, args):
+    """The (a, b) point sets of every pair one call evaluates: its own two,
+    or each pair of a batch."""
+    if name.endswith("_batch"):
+        a, b, pairs = args[:3]
+        return [(a[p[0]:p[0] + p[1]], b[p[2]:p[2] + p[3]]) for p in pairs]
+    return [(args[0], args[1])]
+
+
+def ccta_flags(name, args, kwargs):
+    if name == "radius_count":
+        return bool(kwargs.get("flags", len(args) > 4 and args[4]))
+    if name == "radius_count_batch":
+        return bool(kwargs.get("flags", len(args) > 3 and args[3]))
+    return False
+
+
 def ccta_pairs(name, args, kwargs):
     """Point pairs one kernel call evaluates (offsets x pairs for the sweep)."""
     if name == "morph_sweep":
         points, _unit, reference, xs = args
         return points.shape[0] * reference.shape[0] * xs.shape[0]
-    return args[0].shape[0] * args[1].shape[0]
+    return sum(a.shape[0] * b.shape[0] for a, b in ccta_sets(name, args))
 
 
 def ccta_bound(torch, name, args, kwargs):
     """(bound ms, "operations" or "bytes") of one kernel call: its FP
     operations over the card's lanes, or its bytes (inputs once, outputs
     once) over the memory rate."""
+    kernel = CCTA_WRAPPERS[name]
     e = args[0].element_size()
-    if name == "morph_sweep":
+    if kernel == "morph_sweep":
         points, _unit, reference, xs = args
         nbytes = (2 * points.shape[0] + reference.shape[0]) * 3 * e + 3 * xs.shape[0] * e
-    elif name == "nearest":
-        nbytes = (args[0].shape[0] + args[1].shape[0]) * 3 * e + args[0].shape[0] * (2 * e + 8)
     else:
-        flags = kwargs.get("flags", len(args) > 4 and args[4])
-        nbytes = (args[0].shape[0] + args[1].shape[0]) * 3 * e + args[0].shape[0] * (1 if flags else 8)
+        flag_bytes = 4 if name.endswith("_batch") else 1  # int32 words, or uint8
+        out_row = (2 * e + 8 if kernel == "nearest"
+                   else flag_bytes if ccta_flags(name, args, kwargs) else 8)
+        nbytes = sum((a.shape[0] + b.shape[0]) * 3 * e + a.shape[0] * out_row
+                     for a, b in ccta_sets(name, args))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ops_s = (CCTA_OPS_PER_PAIR[name] * ccta_pairs(name, args, kwargs)
+    ops_s = (CCTA_OPS_PER_PAIR[kernel] * ccta_pairs(name, args, kwargs)
              / (sms * FP_LANES_PER_SM[e] * MAX_SM_CLOCK_HZ))
     bytes_s = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
@@ -1478,24 +1514,31 @@ def ccta_bound(torch, name, args, kwargs):
 
 def ccta_key(torch, name, args, kwargs):
     dt = "f64" if args[0].dtype == torch.float64 else "f32"
-    shapes = " x ".join(str(list(a.shape)) for a in args if hasattr(a, "shape"))
-    flags = " flags" if name == "radius_count" and kwargs.get("flags") else ""
+    if name == "morph_sweep":
+        shapes = " x ".join(str(list(a.shape)) for a in args)
+    else:
+        shapes = " + ".join(f"[{a.shape[0]}] x [{b.shape[0]}]" for a, b in ccta_sets(name, args))
+    flags = " flags" if ccta_flags(name, args, kwargs) else ""
     return f"{name} {dt} {shapes}{flags}"
 
 
 def check_ccta_call(torch, name, args, kwargs, plain_reps=1):
     """One kernel call against its plain version on the same inputs:
     counts, flags and nearest picks equal exactly (minima are exact in both
-    dtypes), sweep sums equal to the kernel-ordered plain sums exactly and
-    to plain's own order within rel 1e-12 (f64) / 1e-4 (f32).  Returns
-    (max abs error against plain, kernel ms, plain ms)."""
+    dtypes; a batch's whole output buffer bit for bit), sweep sums equal to
+    the kernel-ordered plain sums exactly and to plain's own order within
+    rel 1e-12 (f64) / 1e-4 (f32).  Returns (max abs error against plain,
+    kernel ms, plain ms)."""
     import numpy as np
 
     from multimodars_torch.ops import morph_sweep, nearest, radius_count
 
-    mod = {"radius_count": radius_count, "nearest": nearest, "morph_sweep": morph_sweep}[name]
+    mod = {"radius_count": radius_count, "nearest": nearest,
+           "morph_sweep": morph_sweep}[CCTA_WRAPPERS[name]]
     plain = {"radius_count": radius_count.radius_count_plain,
+             "radius_count_batch": radius_count.radius_count_batch_plain,
              "nearest": nearest.nearest_plain,
+             "nearest_batch": nearest.nearest_batch_plain,
              "morph_sweep": morph_sweep.morph_sweep_plain}[name]
     kernel = getattr(mod, name)
     if name == "radius_count" and args[0].dtype == torch.float32:
@@ -1529,7 +1572,7 @@ def check_ccta_call(torch, name, args, kwargs, plain_reps=1):
 
 
 def report_ccta_calls(torch, calls, launches):
-    """Check and time each distinct kernel call of the counted run; print
+    """Check and time each distinct wrapper call of the counted run; print
     each one's ms, bound, share and calls per run.  Returns per kernel the
     numbers of its largest call (by bound) and its max abs error."""
     groups = {}
@@ -1539,6 +1582,7 @@ def report_ccta_calls(torch, calls, launches):
     out = {}
     per_run = {}
     for key, (name, args, kwargs, n) in sorted(groups.items()):
+        kernel = CCTA_WRAPPERS[name]
         pairs = ccta_pairs(name, args, kwargs)
         err, ms, pms = check_ccta_call(torch, name, args, kwargs,
                                        plain_reps=1 if pairs > 5e7 else 3)
@@ -1546,32 +1590,39 @@ def report_ccta_calls(torch, calls, launches):
         say("ccta-tables", f"{key}: {n} call(s) per run, kernel {ms:.4f} ms, plain "
                            f"{pms:.3f} ms, bound {bound:.5f} ms ({by}), "
                            f"{100.0 * bound / ms:.1f}% of bound, {pairs:.3e} pairs")
-        row = per_run.setdefault(name, [0.0, 0.0, 0])
+        row = per_run.setdefault(kernel, [0.0, 0.0, 0])
         row[0] += ms * n
         row[1] += bound * n
         row[2] += n
-        best = out.get(name)
+        best = out.get(kernel)
         if best is None or bound > best["bound_ms"]:
-            out[name] = dict(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
-                             args=args, shape=key, max_abs_err=0.0)
-        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-    for name, (ms, bound, n) in sorted(per_run.items()):
-        say("ccta-tables", f"{name}: {n} calls ({launches.get(name, 0)} launches) per run, "
+            out[kernel] = dict(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by, name=name,
+                               args=args, shape=key, max_abs_err=0.0)
+        out[kernel]["max_abs_err"] = max(out[kernel]["max_abs_err"], err)
+    for kernel, (ms, bound, n) in sorted(per_run.items()):
+        say("ccta-tables", f"{kernel}: {n} calls ({launches.get(kernel, 0)} launches) per run, "
                            f"kernel {ms:.4f} ms, bound {bound:.5f} ms, "
                            f"{100.0 * bound / ms:.1f}% of bound (card after: {card_state()})")
-    # the nearest pick's yardstick: one PyTorch call on its largest inputs
-    a, b = out["nearest"]["args"][:2]
+    # the nearest pick's yardstick: one PyTorch call on the largest pair of
+    # its largest call
+    a, b = max(ccta_sets(out["nearest"]["name"], out["nearest"]["args"]),
+               key=lambda ab: ab[0].shape[0] * ab[1].shape[0])
+    a, b = a.contiguous(), b.contiguous()
     out["nearest"]["library_ms"] = cuda_ms(
         torch, lambda: torch.cdist(a, b).pow(2).min(1), 5)
     say("ccta-tables", f"nearest yardstick torch.cdist(a, b).pow(2).min(1) on "
-                       f"{out['nearest']['shape']}: {out['nearest']['library_ms']:.4f} ms")
+                       f"[{a.shape[0]}] x [{b.shape[0]}] of {out['nearest']['shape']}: "
+                       f"{out['nearest']['library_ms']:.4f} ms")
     return out
 
 
 def synthetic_ccta_calls(torch):
     """Kernel calls at phase 8's shapes on seeded inputs, f32 and f64: the
-    island count (17,000 x 40,000 within 2 mm), the bounded flags (57,606
-    x 60), a morph's nearest pick (25,000 x 50) and a sweep (750 x 576 x 41)."""
+    island count (18,864 x 21,587 within 2 mm) and a seeded larger one
+    (17,000 x 40,000), the bounded flags (57,606 x 60), the region pick
+    (4,036 x 576) and a morph's pick (25,000 x 50), a sweep (750 x 576 x
+    41), and the batched entries: the island count with its self-count in
+    one launch, and a symmetric pair of picks in one launch."""
     import numpy as np
 
     rng = np.random.default_rng(5)
@@ -1582,10 +1633,17 @@ def synthetic_ccta_calls(torch):
             return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device=dev)
         unit = torch.nn.functional.normalize(t((750, 3)), dim=1)
         xs = torch.tensor(-2.0 + 0.1 * np.arange(41), dtype=dtype, device=dev)
+        island = t((18864 + 21587, 3))
+        picks = t((4036 + 576, 3))
         calls += [
+            ("radius_count", (island[:18864], island[18864:], 3.999, 4.001), {}),
             ("radius_count", (t((17000, 3)), t((40000, 3)), 3.999, 4.001), {}),
             ("radius_count", (t((57606, 3)), t((60, 3)), 8.999, 9.001), {"flags": True}),
+            ("radius_count_batch", (island, island, [(0, 18864, 18864, 21587, 3.999, 4.001),
+                                                     (0, 18864, 0, 18864, 3.999, 4.001)]), {}),
+            ("nearest", (picks[:4036], picks[4036:]), {}),
             ("nearest", (t((25000, 3)), t((50, 3))), {}),
+            ("nearest_batch", (picks, picks, [(0, 4036, 4036, 576), (4036, 576, 0, 4036)]), {}),
             ("morph_sweep", (t((750, 3)), unit, t((576, 3)), xs), {}),
         ]
     return calls
@@ -1623,6 +1681,12 @@ def phase_ccta(torch, mt, profile=False):
                 f"certification {stats32}")
     for name, n in launches.items():
         check(n > 0, f"the CCTA path launched no {name} kernel")
+    check(launches["radius_count"] <= CCTA_COUNT_LAUNCHES_MAX,
+          f"{launches['radius_count']} count launches in one run, more than "
+          f"{CCTA_COUNT_LAUNCHES_MAX}")
+    got32 = {k: (v["rows"], v["flagged"], v["changed"]) for k, v in stats32.items()}
+    check(got32 == CCTA_CERTIFICATION_F32,
+          f"f32 certification {got32}, expected {CCTA_CERTIFICATION_F32}")
     sizes = {k: len(v) for k, v in run32[1].items()}
     say("ccta", f"regions after scale: {sizes}; scalings (proximal, distal, aortic) "
                 f"{run32[2]}; stitched {len(run32[3].vertices)} vertices, "
@@ -1654,6 +1718,9 @@ def phase_ccta(torch, mt, profile=False):
         check(run32[2] == other[2], f"f32 card and {label} find different scalings")
         check(same_faces and d == 0.0, f"f32 card and {label} stitch different meshes")
     say("ccta", f"f64 card certification {stats64}; f64 CPU run {cpu_s:.3f} s")
+    got64 = {k: (stats64[k]["flagged"], stats64[k]["changed"]) for k in CCTA_CERTIFICATION_F64}
+    check(got64 == CCTA_CERTIFICATION_F64,
+          f"f64 certification {got64}, expected {CCTA_CERTIFICATION_F64}")
 
     kres = report_ccta_calls(torch, calls, launches)
     # the f64 kernels against plain on the f64 run's own inputs
@@ -1669,7 +1736,8 @@ def phase_ccta(torch, mt, profile=False):
             continue
         seen.add(key)
         err, _, _ = check_ccta_call(torch, name, args, kwargs, plain_reps=1)
-        kres[name]["max_abs_err"] = max(kres[name]["max_abs_err"], err)
+        kernel = CCTA_WRAPPERS[name]
+        kres[kernel]["max_abs_err"] = max(kres[kernel]["max_abs_err"], err)
     say("ccta", f"f64 kernels against plain on {len(seen)} distinct f64 calls: equal "
                 f"(counts and picks exactly, sums to rel 1e-12)")
 
@@ -1691,7 +1759,15 @@ def phase_ccta(torch, mt, profile=False):
         f"{k} {v[0] / 5:.4f} (x{v[1] // 5})"
         for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
     if profile:
-        profile_main_path(torch, run, "ccta_profile.json")
+        by_name = profile_main_path(torch, run, "ccta_profile.json")
+        for kernel in mods:
+            us = sum(v[0] for k, v in by_name.items() if f"{kernel}_kernel" in k)
+            count = sum(v[1] for k, v in by_name.items() if f"{kernel}_kernel" in k)
+            say("profile", f"{kernel}: {count} launches in the profiled run, device "
+                           f"{us / 1e3:.4f} ms, {us / 1e3 / max(count, 1):.4f} ms a launch")
+        for key, (us, count) in sorted(by_name.items()):
+            if key.startswith("Memcpy"):
+                say("profile", f"{key}: {count} copies in the profiled run, {us / 1e3:.4f} ms")
     return launches, kres
 
 

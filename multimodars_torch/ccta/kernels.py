@@ -43,7 +43,7 @@ from ..models.frame import PyFrame
 from ..ops import morph_sweep as _morph_sweep_op
 from ..ops import nearest as _nearest_op
 from ..ops import radius_count as _radius_count_op
-from ..utils.device import to_device
+from ..utils.device import to_device, to_device_packed, to_host
 from ..utils.trace import trace
 from .mesh import fix_faces_winding
 
@@ -111,37 +111,66 @@ def _radius_band(radius: float, maxc: float) -> Tuple[float, float, float]:
 # pairwise primitives
 # ---------------------------------------------------------------------------
 
-@trace("ccta.nearest")
 def min_sqdist(a: np.ndarray, b: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Per-row min squared distance (and first-wins argmin) from a (N,3) to
-    b (M,3), exact in float64.
+    b (M,3), exact in float64 (see :func:`min_sqdist_pairs`)."""
+    return min_sqdist_pairs([(a, b)])[0]
 
-    The nearest kernel gives each row's minimum, argmin and runner-up in
-    the compute dtype; rows whose runner-up lies within the rounding band
-    (a possible argmin flip against the exact scan) are re-picked on the
-    host (:func:`_min_sqdist_host`), and every winning distance is
-    recomputed exactly in float64."""
-    if len(a) == 0 or len(b) == 0:
-        return np.full(len(a), np.inf), np.zeros(len(a), dtype=np.int64)
-    a64 = np.ascontiguousarray(a, dtype=np.float64).reshape(len(a), 3)
-    b64 = np.ascontiguousarray(b, dtype=np.float64).reshape(len(b), 3)
-    if not (np.isfinite(a64).all() and np.isfinite(b64).all()):
-        return _min_sqdist_host(a64, b64)
-    (ac, bc), maxc = _centred(a64, b64)
-    m1, idx, m2 = _nearest_op.nearest(_on_device(ac), _on_device(bc))
-    m1 = m1.cpu().numpy().astype(np.float64)
-    m2 = m2.cpu().numpy().astype(np.float64)
-    args = idx.cpu().numpy()
-    band = (24.0 * np.sqrt(np.maximum(m1, 0.0)) * maxc + 10.0 * m1) * _eps()
-    ambiguous = (m2 - m1) <= band
-    changed = 0
-    if ambiguous.any():
-        _, exact = _min_sqdist_host(np.ascontiguousarray(a64[ambiguous]), b64)
-        changed = int((exact != args[ambiguous]).sum())
-        args[ambiguous] = exact
-    _note("nearest", len(a64), int(ambiguous.sum()), changed)
-    mins = ((a64 - b64[args]) ** 2).sum(axis=1)
-    return mins, args
+
+@trace("ccta.nearest")
+def min_sqdist_pairs(
+    pairs: Sequence[Tuple[np.ndarray, np.ndarray]]
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """For each (a, b) pair, per row of a the min squared distance to b and
+    its first-wins argmin, exact in float64.
+
+    Every pair is centred at its own midpoint; all go up in one copy and
+    through one nearest-kernel launch, which gives each row's minimum,
+    argmin and runner-up in the compute dtype, and come back in one copy.
+    Rows whose runner-up lies within the rounding band (a possible argmin
+    flip against the exact scan) are re-picked on the host
+    (:func:`_min_sqdist_host`), and every winning distance is recomputed
+    exactly in float64.  A pair with an empty set or non-finite points is
+    answered on the host outright."""
+    out: List = [None] * len(pairs)
+    sets, live = [], []
+    for k, (a, b) in enumerate(pairs):
+        if len(a) == 0 or len(b) == 0:
+            out[k] = (np.full(len(a), np.inf), np.zeros(len(a), dtype=np.int64))
+            continue
+        a64 = np.ascontiguousarray(a, dtype=np.float64).reshape(len(a), 3)
+        b64 = np.ascontiguousarray(b, dtype=np.float64).reshape(len(b), 3)
+        if not (np.isfinite(a64).all() and np.isfinite(b64).all()):
+            out[k] = _min_sqdist_host(a64, b64)
+            continue
+        (ac, bc), maxc = _centred(a64, b64)
+        sets += [ac, bc]
+        live.append((k, a64, b64, maxc))
+    if not live:
+        return out
+    pts, offs = to_device_packed(sets, config.compute_dtype)
+    desc = [(offs[2 * q], len(a64), offs[2 * q + 1], len(b64))
+            for q, (_, a64, b64, _) in enumerate(live)]
+    buf = to_host(_nearest_op.nearest_batch(pts, pts, desc))
+    m1_all, idx_all, m2_all = _nearest_op.views(torch.from_numpy(buf), config.compute_dtype)
+    row = 0
+    for k, a64, b64, maxc in live:
+        n = len(a64)
+        m1 = m1_all[row:row + n].numpy().astype(np.float64)
+        m2 = m2_all[row:row + n].numpy().astype(np.float64)
+        args = idx_all[row:row + n].numpy().copy()
+        row += n
+        band = (24.0 * np.sqrt(np.maximum(m1, 0.0)) * maxc + 10.0 * m1) * _eps()
+        ambiguous = (m2 - m1) <= band
+        changed = 0
+        if ambiguous.any():
+            _, exact = _min_sqdist_host(np.ascontiguousarray(a64[ambiguous]), b64)
+            changed = int((exact != args[ambiguous]).sum())
+            args[ambiguous] = exact
+        _note("nearest", n, int(ambiguous.sum()), changed)
+        mins = ((a64 - b64[args]) ** 2).sum(axis=1)
+        out[k] = (mins, args)
+    return out
 
 
 def _min_sqdist_host(a64: np.ndarray, b64: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -294,36 +323,46 @@ def count_within_radius_pairs(
     squared distance <= radius^2 (inclusive, matching rstar's
     locate_within_distance), exact in float64.
 
-    The radius-count kernel counts the pairs certainly inside the band
-    below r^2 and flags rows with a pair inside the band; flagged rows are
-    recounted exactly on the host (:func:`_count_rows_exact_host`).  A pair
-    with a non-positive radius or non-finite points is counted on the host
+    Every pair is centred at its own midpoint with its own band; all go up
+    in one copy and through one radius-count launch, which counts the pairs
+    certainly inside the band below r^2 and the pairs inside the band, and
+    come back in one copy.  Rows with a pair inside the band are recounted
+    exactly on the host (:func:`_count_rows_exact_host`).  A pair with a
+    non-positive radius or non-finite points is counted on the host
     outright."""
-    out: List[np.ndarray] = []
-    for a, b in pairs:
+    out: List = [None] * len(pairs)
+    sets, live = [], []
+    r2 = float(radius) * float(radius)
+    for k, (a, b) in enumerate(pairs):
         a64 = np.ascontiguousarray(a, dtype=np.float64).reshape(len(a), 3)
         b64 = np.ascontiguousarray(b, dtype=np.float64).reshape(len(b), 3)
-        r2 = float(radius) * float(radius)
         if len(a64) == 0 or len(b64) == 0:
-            out.append(np.zeros(len(a64), dtype=np.int64))
+            out[k] = np.zeros(len(a64), dtype=np.int64)
             continue
         if radius <= 0 or not (np.isfinite(a64).all() and np.isfinite(b64).all()):
-            out.append(_count_rows_exact_dense(a64, b64, r2))
+            out[k] = _count_rows_exact_dense(a64, b64, r2)
             continue
         (ac, bc), maxc = _centred(a64, b64)
-        r2, r2lo, r2hi = _radius_band(float(radius), maxc)
-        certain, near = _radius_count_op.radius_count(
-            _on_device(ac), _on_device(bc), r2lo, r2hi
-        )
-        counts = certain.cpu().numpy().astype(np.int64)
-        near_rows = near.cpu().numpy() > 0
+        sets += [ac, bc]
+        live.append((k, a64, b64, _radius_band(float(radius), maxc)))
+    if not live:
+        return out
+    pts, offs = to_device_packed(sets, config.compute_dtype)
+    desc = [(offs[2 * q], len(a64), offs[2 * q + 1], len(b64), lo, hi)
+            for q, (_, a64, b64, (_, lo, hi)) in enumerate(live)]
+    words = to_host(_radius_count_op.radius_count_batch(pts, pts, desc))
+    for (k, a64, b64, (r2, _, _)), (certain, near) in zip(
+        live, _radius_count_op.batch_views(words, desc)
+    ):
+        counts = certain.astype(np.int64)
+        near_rows = near > 0
         changed = 0
         if near_rows.any():
             exact = _count_rows_exact_host(np.ascontiguousarray(a64[near_rows]), b64, r2)
             changed = int((exact != counts[near_rows]).sum())
             counts[near_rows] = exact
         _note("radius_count", len(a64), int(near_rows.sum()), changed)
-        out.append(counts)
+        out[k] = counts
     return out
 
 
@@ -344,7 +383,8 @@ def count_within_radius(a: np.ndarray, b: np.ndarray, radius: float) -> np.ndarr
 def within_radius_of_any(pts: np.ndarray, targets: np.ndarray, radius: float) -> np.ndarray:
     """bool[N]: row within ``radius`` of any target (closed ball), exact.
 
-    The radius-count kernel's flags mode marks rows with a certain pair and
+    Both sets go up in one copy; the radius-count kernel's flags mode marks
+    rows with a certain pair and
     rows with a pair in the rounding band; only band rows without a certain
     pair are decided on the host, by their exact float64 minimum distance."""
     p64 = np.ascontiguousarray(pts, dtype=np.float64).reshape(-1, 3)
@@ -355,9 +395,10 @@ def within_radius_of_any(pts: np.ndarray, targets: np.ndarray, radius: float) ->
         return _count_rows_exact_dense(p64, t64, float(radius) * float(radius)) > 0
     (pc, tc), maxc = _centred(p64, t64)
     r2, r2lo, r2hi = _radius_band(float(radius), maxc)
-    flags = _radius_count_op.radius_count(
-        _on_device(pc), _on_device(tc), r2lo, r2hi, flags=True
-    ).cpu().numpy()
+    pts, (po, to) = to_device_packed([pc, tc], config.compute_dtype)
+    flags = to_host(_radius_count_op.radius_count_batch(
+        pts, pts, [(po, len(pc), to, len(tc), r2lo, r2hi)], flags=True
+    ))
     inside = (flags & 1).astype(bool)
     near = (flags & 2).astype(bool) & ~inside
     if near.any():
@@ -819,10 +860,10 @@ def cl_region_split_masks(
         [p.contour_point.frame_index for p in centerline.points], dtype=np.int64
     )
 
-    d2, _ = min_sqdist(cl_pos, centroids)
+    # two independent picks: one launch
+    (d2, _), (_, nearest_cl) = min_sqdist_pairs([(cl_pos, centroids), (pts, cl_pos)])
     in_range = np.unique(cl_frame_idx[d2 <= cumulative * cumulative])
 
-    _, nearest_cl = min_sqdist(pts, cl_pos)
     between = np.isin(cl_frame_idx[nearest_cl], in_range)
 
     dist_ref = centroids[-1]
@@ -902,8 +943,7 @@ def _symmetric_nn_distance(a: np.ndarray, b: np.ndarray) -> float:
     Parity: scale_coronary.rs:188-216."""
     if len(a) == 0 or len(b) == 0:
         return float("inf")
-    d_ab, _ = min_sqdist(a, b)
-    d_ba, _ = min_sqdist(b, a)
+    (d_ab, _), (d_ba, _) = min_sqdist_pairs([(a, b), (b, a)])
     return float(math.sqrt((d_ab.mean() + d_ba.mean()) / 2.0))
 
 
@@ -981,18 +1021,27 @@ def find_proximal_distal_scaling(
     cl_pos = centerline.positions()
 
     # the NN pass is row-independent: the distal pick's distances over the
-    # FULL anomalous set, restricted to the rows the proximal pick left
-    prox_live = len(anomalous) and len(prox_ref) and n_proximal
-    dist_live = len(anomalous) and len(dist_ref) and n_distal
+    # FULL anomalous set, restricted to the rows the proximal pick left.
+    # The distal pick runs when rows are left, which the proximal pick's
+    # size alone decides, so both picks go in one launch.
+    n_rows = len(anomalous)
+    prox_live = bool(n_rows and len(prox_ref) and n_proximal)
+    dist_live = bool(n_rows and len(dist_ref) and n_distal)
+    # rows the proximal pick takes: len(order[:n_proximal]) in
+    # _region_pick_from_d2, for any sign of n_proximal
+    taken = len(range(n_rows)[:min(n_proximal, n_rows)]) if prox_live else 0
+    dist_runs = dist_live and taken < n_rows
+    picks = min_sqdist_pairs(
+        [(anomalous, prox_ref)] * prox_live + [(anomalous, dist_ref)] * dist_runs
+    )
     if prox_live:
-        d2_prox, _ = min_sqdist(anomalous, prox_ref)
-        prox_pts, keep = _region_pick_from_d2(anomalous, d2_prox, n_proximal)
+        prox_pts, keep = _region_pick_from_d2(anomalous, picks[0][0], n_proximal)
         remaining_rows = ~keep
     else:
         prox_pts = np.zeros((0, 3))
-        remaining_rows = np.ones(len(anomalous), dtype=bool)
-    if dist_live and remaining_rows.any():
-        d2_dist, _ = min_sqdist(anomalous, dist_ref)
+        remaining_rows = np.ones(n_rows, dtype=bool)
+    if dist_runs:
+        d2_dist = picks[-1][0]
         dist_pts, _ = _region_pick_from_d2(
             anomalous[remaining_rows], d2_dist[remaining_rows], n_distal
         )

@@ -45,7 +45,11 @@ def _nvcc(what: str) -> str:
 
 
 def library_path(source: Path) -> Path:
+    """The library of ``source``, named by a hash of it, the headers beside
+    it (``*.cuh``, which a source may include) and the flags."""
     tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(source.parent.glob("*.cuh")):
+        tag.update(header.read_bytes())
     return BUILD_DIR / f"lib{source.stem}_{tag.hexdigest()[:16]}.so"
 
 
@@ -97,3 +101,38 @@ def check_tensor(name, t, dtype, shape, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def call_on(device: torch.device, fn, *args, stream: bool = True):
+    """``fn(*args)`` with ``device`` current, and with the pointer of its
+    current stream as the last argument unless ``stream`` is False: how a
+    wrapper calls its kernel's C entry point."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index != current:
+        with torch.cuda.device(index):
+            return call_on(device, fn, *args, stream=stream)
+    if stream:
+        return fn(*args, _raw_stream(index))
+    return fn(*args)
+
+
+def _raw_stream(index: int) -> int:
+    """The pointer of the current stream of device ``index``: torch's raw
+    getter where it has one (a few microseconds less than building a
+    ``torch.cuda.Stream``), else the public one."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]

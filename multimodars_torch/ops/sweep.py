@@ -288,11 +288,6 @@ def check_inputs(
     return F, N, M, K
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _cost_table_cuda(
     test, ref, test_mask, ref_mask, angles, angles_valid, dense,
     outer_stride_test, outer_stride_ref,
@@ -308,7 +303,7 @@ def _cost_table_cuda(
     out = torch.full((F, K), -math.inf, dtype=dtype, device=device)
     if F == 0 or K == 0:
         return out
-    n_sms = _sm_count(device.index)
+    n_sms = _cuda_build.sm_count(device)
     plans = [
         (f0, min(F, f0 + MAX_PAIRS),
          plan_launch(min(F, f0 + MAX_PAIRS) - f0, N, M, K, st, sr,

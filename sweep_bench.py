@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""Time the sweep kernel of one checkout at the main path's table shapes.
+"""Time the kernels of one checkout at the main paths' shapes.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
-    python3 sweep_bench.py                    # this checkout's kernel
-    python3 sweep_bench.py --root OTHER_TREE  # another checkout's kernel
+    python3 sweep_bench.py                        # this checkout's sweep kernel
+    python3 sweep_bench.py --root OTHER_TREE      # another checkout's
+    python3 sweep_bench.py --family ccta [--root OTHER_TREE]
 
-It imports ``multimodars_torch.ops.sweep`` from ``--root`` (default: the
-directory of this script), builds its kernel, and times
-``sweep.cost_table`` on seeded ring-shaped point sets at the shapes the
-single, four-phase and cohort paths give it (chip_smoke.py records them
-from the runs themselves): CUDA events around 5 calls in a row, the median
-of 3 such windows, the bound and its share as chip_smoke.py computes them.
-To compare two versions, time them in one run on one card, in turns:
-parent, change, change, parent.
+It imports ``multimodars_torch`` from ``--root`` (default: the directory of
+this script) and builds its kernels.
+
+- ``--family sweep`` (the default) times ``sweep.cost_table`` on seeded
+  ring-shaped point sets at the shapes the single, four-phase and cohort
+  paths give it (chip_smoke.py records them from the runs themselves): CUDA
+  events around 5 calls in a row, the median of 3 such windows.
+- ``--family ccta`` times ``radius_count.radius_count(a, b, r2lo, r2hi,
+  flags=...)`` and ``nearest.nearest(a, b)``, the signatures every
+  checkout since the CCTA toolkit's port has, on seeded tube-like clouds at
+  the CCTA fusion run's recorded shapes (chip_smoke.py phase 8): CUDA events
+  around 5 calls (median of 11 windows), and for every shape the kernel's
+  device time per launch (torch.profiler, 20 calls) and the host time per
+  call (the wrapper's enqueue: 40 calls with one synchronise after them,
+  median of 11 windows).
+  ``--sass`` adds the instructions per pair of each kernel's inner loop,
+  read from ``cuobjdump -sass`` of the libraries just built.
+
+Bounds and shares are chip_smoke.py's.  To compare two versions, time them
+in one run on one card, in turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -21,6 +34,7 @@ from __future__ import annotations
 import argparse
 import math
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -72,11 +86,176 @@ def table_args(torch, np, F, N, M, K, stride, dtype, masked):
     return (test, ref, tm, rm, angles, valid), kw
 
 
+# (name, kernel, N, M, dtype, squared radius or None, flags): the CCTA
+# fusion run's recorded shapes at 57,606 vertices, and the seeded f64 count
+CCTA_SHAPES = [
+    ("f32 island count [18864] x [21587], r 2", "radius_count", 18864, 21587, "float32", 4.0, False),
+    ("f32 island self-count [18864] x [18864], r 2", "radius_count", 18864, 18864, "float32", 4.0,
+     False),
+    ("f32 split absorption [4514] x [4032], r 1", "radius_count", 4514, 4032, "float32", 1.0, False),
+    ("f32 split absorption [8609] x [4032], r 1", "radius_count", 8609, 4032, "float32", 1.0, False),
+    ("f32 bounded flags [57606] x [60], r 3", "radius_count", 57606, 60, "float32", 9.0, True),
+    ("f32 membership flags [18864] x [1047], r 0.71", "radius_count", 18864, 1047, "float32", 0.5,
+     True),
+    ("f32 region pick [4036] x [576]", "nearest", 4036, 576, "float32", None, False),
+    ("f32 morph pick [26449] x [50]", "nearest", 26449, 50, "float32", None, False),
+    ("f64 island count [18864] x [21587], r 2", "radius_count", 18864, 21587, "float64", 4.0, False),
+    ("f64 seeded count [17000] x [40000], r 2", "radius_count", 17000, 40000, "float64", 4.0, False),
+]
+
+
+def tube_cloud(np, n, seed):
+    """n points on the surfaces of a few 1.4-6 mm tubes along a 60 mm
+    path, about a mesh's vertex spacing apart: the CCTA case's density."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0.0, 60.0, n)
+    th = rng.uniform(0.0, 2.0 * math.pi, n)
+    r = rng.choice([1.4, 1.4, 6.0], n)
+    return np.stack([r * np.cos(th) + 0.1 * t, r * np.sin(th), t], 1)
+
+
+def device_ms(torch, fn, name, calls=20):
+    """The device time of one launch of the kernel whose name holds
+    ``name``: torch.profiler over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if name in evt.key:
+            total += getattr(evt, "device_time_total", None) or evt.cuda_time_total
+            count += evt.count
+    return total / 1e3 / count if count else float("nan")
+
+
+def events_ms(torch, fn, calls=5, windows=11):
+    """CUDA events around ``calls`` calls in a row, divided by ``calls``;
+    the median of ``windows`` such windows (a small call's time is its
+    host time, which wanders more than a device time)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[windows // 2]
+
+
+def host_ms(torch, fn, calls=40, windows=11):
+    """Host time of one call: the wrapper's enqueue, ``calls`` calls with
+    one synchronise after them; the median of ``windows`` such windows."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append(1e3 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return sorted(times)[windows // 2]
+
+
+def sass_per_pair(sass: str):
+    """Per kernel function of a ``cuobjdump -sass`` dump: its per-pair loop,
+    the loop (a backward branch) with the most FP multiplies per
+    instruction, as (function, instructions, pairs, counts by opcode); a
+    pair's d2 takes 3 multiplies."""
+    import collections
+    import re
+
+    out = []
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        ins = [(int(m.group(1), 16), m.group(2).strip())
+               for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        at = {a: k for k, (a, _) in enumerate(ins)}
+        best = None
+        for k, (a, op) in enumerate(ins):
+            t = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+            if t is None or int(t.group(1), 16) >= a or int(t.group(1), 16) not in at:
+                continue
+            body = [re.sub(r"^@!?U?P\w+\s+", "", o).split()[0].split(".")[0]
+                    for _, o in ins[at[int(t.group(1), 16)]:k + 1]]
+            muls = sum(o in ("FMUL", "DMUL") for o in body)
+            if muls >= 3 and (best is None or muls / len(body) > best[0]):
+                best = (muls / len(body), body)
+        if best is not None:
+            body = best[1]
+            pairs = sum(o in ("FMUL", "DMUL") for o in body) // 3
+            out.append((name, len(body), pairs, collections.Counter(body)))
+    return out
+
+
+def report_sass(tag):
+    """Instructions per pair of the count and pick kernels' inner loops,
+    from this run's libraries (``cuobjdump`` beside ``nvcc``)."""
+    import subprocess
+
+    from multimodars_torch.ops import _cuda_build, nearest, radius_count
+
+    cuobjdump = Path(_cuda_build._nvcc("cuobjdump")).with_name("cuobjdump")
+    for mod in (radius_count, nearest):
+        lib = _cuda_build.library_path(mod.SOURCE)
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                              capture_output=True, text=True).stdout
+        for name, n, pairs, ops in sass_per_pair(sass):
+            top = ", ".join(f"{o} {c}" for o, c in ops.most_common(8))
+            print(f"[bench-ccta] {tag}: sass {name}: inner loop {n} instructions for {pairs} "
+                  f"pairs, {n / pairs:.2f} a pair ({top})", flush=True)
+
+
+def bench_ccta(torch, np, tag):
+    from chip_smoke import card_state, ccta_bound
+
+    from multimodars_torch.ops import nearest, radius_count
+
+    dev = torch.device("cuda", 0)
+    for k, (name, kernel, n, m, dtype, r2, flags) in enumerate(CCTA_SHAPES):
+        dt = getattr(torch, dtype)
+        a = torch.tensor(tube_cloud(np, n, 2 * k + 1), dtype=dt, device=dev)
+        b = torch.tensor(tube_cloud(np, m, 2 * k + 2), dtype=dt, device=dev)
+        if kernel == "nearest":
+            args, kw = (a, b), {}
+
+            def fn():
+                return nearest.nearest(a, b)
+        else:
+            args, kw = (a, b, r2 * (1 - 1e-6), r2 * (1 + 1e-6)), {"flags": flags}
+
+            def fn():
+                return radius_count.radius_count(*args, **kw)
+        ms = events_ms(torch, fn)
+        dms = device_ms(torch, fn, f"{kernel}_kernel")
+        hms = host_ms(torch, fn)
+        bound, by = ccta_bound(torch, kernel, args, kw)
+        print(f"[bench-ccta] {tag}: {name}: events {ms:.4f} ms, device {dms:.4f} ms a launch, "
+              f"host {hms:.4f} ms a call, bound {bound:.5f} ms ({by}), "
+              f"{100.0 * bound / ms:.1f}% of bound by events, {100.0 * bound / dms:.1f}% by "
+              f"device time (card after: {card_state()})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose multimodars_torch is timed")
     ap.add_argument("--tag", default="", help="label printed on every line")
+    ap.add_argument("--family", choices=["sweep", "ccta"], default="sweep",
+                    help="the sweep kernel, or the CCTA count and pick kernels")
+    ap.add_argument("--sass", action="store_true",
+                    help="with --family ccta: instructions per pair of the kernels' inner "
+                         "loops (cuobjdump -sass)")
     args = ap.parse_args()
 
     import numpy as np
@@ -98,6 +277,11 @@ def main() -> int:
         print(f"FAIL: imported {check}, not from {root}")
         return 1
     tag = args.tag or root.name
+    if args.family == "ccta":
+        bench_ccta(torch, np, tag)
+        if args.sass:
+            report_sass(tag)
+        return 0
     for name, F, N, M, K, stride, dtype, masked in SHAPES:
         targs, kw = table_args(torch, np, F, N, M, K, stride, dtype, masked)
         ms = cuda_ms(torch, lambda: sweep.cost_table(*targs, **kw), 5)

@@ -203,20 +203,24 @@ def test_nearest_tiling_equals_plain(cols):
 
 
 def test_radius_count_splits_equal_plain():
-    """The kernel's split of ``b`` over the grid (``plan_splits``) sums to
-    the unsplit counts; a split never falls under one tile."""
+    """The kernel's work items (``plan`` / ``items_of``: row tiles x splits
+    of ``b``) sum to the unsplit counts; a split never falls under one
+    planning chunk."""
     a, b = _pair("M > 128")
     r2lo, r2hi = 1.0, 1.2
     whole = rct.radius_count_plain(_t(a), _t(b), r2lo, r2hi)
-    for n, m, target in ((len(a), len(b), 528), (17000, 40000, 528), (57606, 60, 528)):
-        s = rct.plan_splits(n, m, target)
-        assert 1 <= s <= max(1, -(-m // rct.TILE))
-    splits = 2
-    per = -(-len(b) // splits)
-    parts = [rct.radius_count_plain(_t(a), _t(b[i:i + per]), r2lo, r2hi)
-             for i in range(0, len(b), per)]
-    assert torch.equal(sum(p[0] for p in parts), whole[0])
-    assert torch.equal(sum(p[1] for p in parts), whole[1])
+    for n, m in ((len(a), len(b)), (17000, 40000), (57606, 60)):
+        (s, per), = rct.plan([(n, m)], sms=4, blocks_per_sm=2)
+        assert per % rct.CHUNK == 0 and 1 <= s == -(-m // per)
+    sizes = [(len(a), len(b))]
+    certain = torch.zeros(len(a), dtype=torch.int32)
+    near = torch.zeros(len(a), dtype=torch.int32)
+    for _, r0, r1, j0, j1 in rct.items_of(sizes, rct.plan(sizes, sms=4, blocks_per_sm=2)):
+        c, nr = rct.radius_count_plain(_t(a[r0:r1]), _t(b[j0:j1]), r2lo, r2hi)
+        certain[r0:r1] += c
+        near[r0:r1] += nr
+    assert torch.equal(certain, whole[0])
+    assert torch.equal(near, whole[1])
 
 
 def test_radius_count_band_edges():

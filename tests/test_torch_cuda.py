@@ -525,6 +525,120 @@ def test_morph_sweep_kernel_matches_plain(cuda, n, m, dtype):
                                    rtol=rtol, atol=0.0)
 
 
+def _island(n, m, seed, dtype, device):
+    """Two interleaved tube-like clouds on a 0.25 mm lattice, as the island
+    count sees them: many pairs inside 2 mm, exact ties at lattice radii."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 400, (n + m, 1)) * 0.25
+    ring = rng.integers(-6, 7, (n + m, 2)) * 0.25
+    pts = np.concatenate([ring, t], 1)
+    return (torch.tensor(pts[:n], dtype=dtype, device=device),
+            torch.tensor(pts[n:], dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("n, m", [(18864, 21587), (18864, 18864), (4514, 4032), (31, 1),
+                                  (1, 5000), (1025, 513)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_radius_count_kernel_matches_plain_at_island_shapes(cuda, n, m, dtype):
+    """Counts at 2 mm on the lattice (r^2 = 4 exactly hit), band edges
+    bracketing it: kernel = plain exactly, and the near band saw pairs."""
+    a, b = _island(n, m, n + m, dtype, cuda)
+    got = rct.radius_count(a, b, 4.0 - 1e-3, 4.0 + 1e-3)
+    # the wrapper rounds the band edges to the dtype; plain gets the same
+    want = rct.radius_count_plain(a, b, rct._in_dtype(4.0 - 1e-3, dtype),
+                                  rct._in_dtype(4.0 + 1e-3, dtype))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    if n * m > 1e6:
+        assert int(got[1].sum()) > 0 and int(got[0].sum()) > 0
+
+
+@pytest.mark.parametrize("per_split", [64, 128, 576, 1216, 5000])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_radius_count_batch_matches_plain_for_any_split(cuda, monkeypatch, per_split, dtype):
+    """Several pairs in one launch (one of them empty on each side), with
+    splits of ``per_split`` points forced on the planner: one or several
+    tiles per split, a ring that wraps, ragged tails; counts and flags equal
+    the per-pair plain calls exactly."""
+    a, b = _island(3000, 2600, 7, dtype, cuda)
+    pairs = [(0, 2000, 0, 2600, 1.0, 1.07), (100, 0, 0, 2600, 1.0, 1.1),
+             (5, 2995, 2600, 0, 1.0, 1.1), (2000, 1000, 17, 2583, 4.0, 4.0001),
+             (1, 1, 3, 1, 0.0, 100.0)]
+    monkeypatch.setattr(rct, "_plan", lambda sizes, sms, bps: [
+        (max(1, -(-m // per_split)), per_split) for _, m in sizes])
+    for flags in (False, True):
+        launches = rct.launches
+        got = rct.radius_count_batch(a, b, pairs, flags=flags)
+        want = rct.radius_count_batch_plain(a, b, pairs, flags=flags)
+        torch.cuda.synchronize()
+        assert rct.launches == launches + 1
+        assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("n, m", [(4036, 576), (26449, 50), (31, 1), (5, 3), (300, 1300)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_nearest_kernel_matches_plain_for_every_lane_count(cuda, monkeypatch, lanes, n, m,
+                                                           dtype):
+    """(m1, idx, m2) equal plain bit for bit for every lane count the
+    planner can choose, on lattice ties and duplicates, with fewer points
+    than lanes and a b set of one point."""
+    monkeypatch.setattr(nst, "plan_lanes", lambda n, m, sms=132: lanes)
+    a = torch.tensor(_cloud(n, n + 5), dtype=dtype, device=cuda)
+    b = torch.tensor(_cloud(m, m + 6), dtype=dtype, device=cuda)
+    got = nst.nearest(a, b)
+    want = nst.nearest_plain(a, b)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_nearest_batch_matches_plain(cuda, dtype):
+    """Several pairs in one launch, an empty one among them and ranges that
+    start off the 16-byte grid: the byte buffer equals the per-pair plain
+    calls', launched once."""
+    a = torch.tensor(_cloud(9000, 3), dtype=dtype, device=cuda)
+    b = torch.tensor(_cloud(2000, 4), dtype=dtype, device=cuda)
+    pairs = [(0, 4036, 1, 576), (4036, 0, 0, 5), (7, 4000, 3, 1), (1, 8999, 0, 2000),
+             (3, 60, 11, 12)]
+    launches = nst.launches
+    got = nst.nearest_batch(a, b, pairs)
+    want = nst.nearest_batch_plain(a, b, pairs)
+    torch.cuda.synchronize()
+    assert nst.launches == launches + 1
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_ccta_glue_on_cuda_matches_cpu(cuda):
+    """The batched glue (``min_sqdist_pairs``, ``count_within_radius_pairs``,
+    ``within_radius_of_any``) gives the CPU float64 answers on the card in
+    both dtypes, in one launch per call."""
+    from multimodars_torch.ccta import kernels as ck
+
+    a, b = _cloud(3000, 8), _cloud(1500, 9)
+
+    def run():
+        picks = ck.min_sqdist_pairs([(a, b), (b, a), (a[:0], b)])
+        counts = ck.count_within_radius_pairs([(a, b), (a, a), (b, a[:0])], 1.5)
+        flags = ck.within_radius_of_any(a, b, 1.5)
+        return picks, counts, flags
+
+    with mt.config.use(device="cpu", dtype=torch.float64):
+        want = run()
+    for dtype in (torch.float64, torch.float32):
+        launches = (rct.launches, nst.launches)
+        with mt.config.use(device=cuda, dtype=dtype):
+            got = run()
+        assert (rct.launches, nst.launches) == (launches[0] + 2, launches[1] + 1)
+        for (gd, gi), (wd, wi) in zip(got[0], want[0]):
+            assert np.array_equal(gi, wi) and np.array_equal(gd, wd)
+        for g, w in zip(got[1], want[1]):
+            assert np.array_equal(g, w)
+        assert np.array_equal(got[2], want[2])
+
+
 def test_ccta_kernels_refuse_what_they_cannot_take(cuda):
     a = torch.zeros((4, 3), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="expected cuda"):
