@@ -53,6 +53,7 @@ Phases:
    the CCTA fusion benchmark's arguments on its synthetic anomalous-RCA
    case at scale 3 (57,606 vertices, 115,200 faces), in f32 (launches of
    the radius count, nearest pick and morph sweep kernels counted, the
+   scale stage's three sweeps in one batched call and launch, the
    certification counts of ``ccta.kernels.stats``), in f64 on the card and
    in f64 on the CPU: the same region index sets and scalings and the same
    stitched mesh (0.0 mm) in all three; each kernel against its plain
@@ -1285,6 +1286,7 @@ CCTA_REPLACES = {
 CCTA_WRAPPERS = {
     "radius_count": "radius_count", "radius_count_batch": "radius_count",
     "nearest": "nearest", "nearest_batch": "nearest", "morph_sweep": "morph_sweep",
+    "morph_sweep_batch": "morph_sweep",
 }
 # the case's certification work, (rows, flagged, changed) per primitive of
 # ccta.kernels.stats: what every run of this case has shown, in float32 and,
@@ -1295,6 +1297,8 @@ CCTA_CERTIFICATION_F32 = {"radius_count": (198050, 86, 48), "nearest": (70322, 5
 CCTA_CERTIFICATION_F64 = {"radius_count": (0, 0), "nearest": (432, 2)}
 # count launches of one run: 3 count calls of 2 pairs, 3 flags calls
 CCTA_COUNT_LAUNCHES_MAX = 6
+# morph-sweep launches of one run: the scale stage's three sweeps in one
+CCTA_SWEEP_LAUNCHES_MAX = 1
 
 
 def _basis_from_tangent(t):
@@ -1391,9 +1395,11 @@ def ccta_case(mt):
 
 @contextlib.contextmanager
 def recorded_scalings(manipulating):
-    """Record the scalings the scale stage finds (proximal, distal, aortic)."""
+    """Record the scalings the scale stage finds (proximal, distal, aortic)
+    as its finishes resolve them."""
     seen = []
-    dp, ao = manipulating.find_distal_and_proximal_scaling, manipulating.find_aorta_scaling
+    dp = manipulating.find_distal_and_proximal_scaling_finish
+    ao = manipulating.find_aorta_scaling_finish
 
     def spy_dp(*args, **kwargs):
         out = dp(*args, **kwargs)
@@ -1405,13 +1411,13 @@ def recorded_scalings(manipulating):
         seen.append(out)
         return out
 
-    manipulating.find_distal_and_proximal_scaling = spy_dp
-    manipulating.find_aorta_scaling = spy_ao
+    manipulating.find_distal_and_proximal_scaling_finish = spy_dp
+    manipulating.find_aorta_scaling_finish = spy_ao
     try:
         yield seen
     finally:
-        manipulating.find_distal_and_proximal_scaling = dp
-        manipulating.find_aorta_scaling = ao
+        manipulating.find_distal_and_proximal_scaling_finish = dp
+        manipulating.find_aorta_scaling_finish = ao
 
 
 @contextlib.contextmanager
@@ -1434,6 +1440,26 @@ def recorded_ccta_calls():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def recorded_rays():
+    """Record (rays, faces) of every call of the occlusion pass's ray test
+    (``io.native.ray_occlusion_native``, which the pass calls first)."""
+    from multimodars_torch.io import native
+
+    seen = []
+    fn = native.ray_occlusion_native
+
+    def spy(origins, directions, tris, *args, **kwargs):
+        seen.append((len(origins), len(tris)))
+        return fn(origins, directions, tris, *args, **kwargs)
+
+    native.ray_occlusion_native = spy
+    try:
+        yield seen
+    finally:
+        native.ray_occlusion_native = fn
 
 
 def ccta_run(torch, mt, case):
@@ -1465,6 +1491,15 @@ def ccta_run(torch, mt, case):
     return labelled, scaled_idx, list(scalings), stitched["mesh"]
 
 
+def morph_sets(name, args):
+    """(points, reference, K) of every sweep one morph-sweep call evaluates."""
+    if name == "morph_sweep_batch":
+        points, _unit, ref, _xs, sweeps = args
+        return [(points[p:p + n], ref[r:r + m], K) for p, n, r, m, K in sweeps]
+    points, _unit, ref, xs = args
+    return [(points, ref, xs.shape[0])]
+
+
 def ccta_sets(name, args):
     """The (a, b) point sets of every pair one call evaluates: its own two,
     or each pair of a batch."""
@@ -1484,9 +1519,8 @@ def ccta_flags(name, args, kwargs):
 
 def ccta_pairs(name, args, kwargs):
     """Point pairs one kernel call evaluates (offsets x pairs for the sweep)."""
-    if name == "morph_sweep":
-        points, _unit, reference, xs = args
-        return points.shape[0] * reference.shape[0] * xs.shape[0]
+    if CCTA_WRAPPERS[name] == "morph_sweep":
+        return sum(p.shape[0] * r.shape[0] * K for p, r, K in morph_sets(name, args))
     return sum(a.shape[0] * b.shape[0] for a, b in ccta_sets(name, args))
 
 
@@ -1497,8 +1531,11 @@ def ccta_bound(torch, name, args, kwargs):
     kernel = CCTA_WRAPPERS[name]
     e = args[0].element_size()
     if kernel == "morph_sweep":
-        points, _unit, reference, xs = args
-        nbytes = (2 * points.shape[0] + reference.shape[0]) * 3 * e + 3 * xs.shape[0] * e
+        # points and units, references and the offsets read once; fwd and
+        # bwd written once
+        sets = morph_sets(name, args)
+        nbytes = (sum((2 * p.shape[0] + r.shape[0]) * 3 * e + 2 * K * e for p, r, K in sets)
+                  + max(K for _, _, K in sets) * e)
     else:
         flag_bytes = 4 if name.endswith("_batch") else 1  # int32 words, or uint8
         out_row = (2 * e + 8 if kernel == "nearest"
@@ -1514,8 +1551,9 @@ def ccta_bound(torch, name, args, kwargs):
 
 def ccta_key(torch, name, args, kwargs):
     dt = "f64" if args[0].dtype == torch.float64 else "f32"
-    if name == "morph_sweep":
-        shapes = " x ".join(str(list(a.shape)) for a in args)
+    if CCTA_WRAPPERS[name] == "morph_sweep":
+        shapes = " + ".join(f"[{p.shape[0]}] x [{r.shape[0]}] x {K}"
+                            for p, r, K in morph_sets(name, args))
     else:
         shapes = " + ".join(f"[{a.shape[0]}] x [{b.shape[0]}]" for a, b in ccta_sets(name, args))
     flags = " flags" if ccta_flags(name, args, kwargs) else ""
@@ -1539,7 +1577,8 @@ def check_ccta_call(torch, name, args, kwargs, plain_reps=1):
              "radius_count_batch": radius_count.radius_count_batch_plain,
              "nearest": nearest.nearest_plain,
              "nearest_batch": nearest.nearest_batch_plain,
-             "morph_sweep": morph_sweep.morph_sweep_plain}[name]
+             "morph_sweep": morph_sweep.morph_sweep_plain,
+             "morph_sweep_batch": morph_sweep.morph_sweep_batch_plain}[name]
     kernel = getattr(mod, name)
     if name == "radius_count" and args[0].dtype == torch.float32:
         # the wrapper rounds the band edges to float32; plain gets the same
@@ -1554,8 +1593,13 @@ def check_ccta_call(torch, name, args, kwargs, plain_reps=1):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = 0.0
-    if name == "morph_sweep":
-        ordered = morph_sweep.morph_sweep_ordered(*args)
+    if CCTA_WRAPPERS[name] == "morph_sweep":
+        if name == "morph_sweep_batch":
+            f64 = args[0].dtype == torch.float64
+            plans = morph_sweep.launch_plan(args[4], args[0].device, f64)
+            ordered = (morph_sweep.morph_sweep_batch_ordered(*args, plans),)
+        else:
+            ordered = morph_sweep.morph_sweep_ordered(*args)
         rtol = 1e-12 if args[0].dtype == torch.float64 else 1e-4
         for g, o, w in zip(got, ordered, want):
             check(torch.equal(g, o), f"{name}: kernel sums differ from its order's plain sums")
@@ -1613,6 +1657,14 @@ def report_ccta_calls(torch, calls, launches):
     say("ccta-tables", f"nearest yardstick torch.cdist(a, b).pow(2).min(1) on "
                        f"[{a.shape[0]}] x [{b.shape[0]}] of {out['nearest']['shape']}: "
                        f"{out['nearest']['library_ms']:.4f} ms")
+    # and on a morph's pick: the most rows against a centerline-sized set
+    picks = [ab for name, args, _ in calls if CCTA_WRAPPERS[name] == "nearest"
+             for ab in ccta_sets(name, args) if ab[1].shape[0] <= 64]
+    if picks:
+        a, b = (x.contiguous() for x in max(picks, key=lambda ab: ab[0].shape[0]))
+        ms = cuda_ms(torch, lambda: torch.cdist(a, b).pow(2).min(1), 5)
+        say("ccta-tables", f"morph pick yardstick torch.cdist(a, b).pow(2).min(1) on "
+                           f"[{a.shape[0]}] x [{b.shape[0]}]: {ms:.4f} ms")
     return out
 
 
@@ -1620,9 +1672,11 @@ def synthetic_ccta_calls(torch):
     """Kernel calls at phase 8's shapes on seeded inputs, f32 and f64: the
     island count (18,864 x 21,587 within 2 mm) and a seeded larger one
     (17,000 x 40,000), the bounded flags (57,606 x 60), the region pick
-    (4,036 x 576) and a morph's pick (25,000 x 50), a sweep (750 x 576 x
+    (4,036 x 576) and a morph's pick (26,449 x 50), a sweep (750 x 576 x
     41), and the batched entries: the island count with its self-count in
-    one launch, and a symmetric pair of picks in one launch."""
+    one launch, a symmetric pair of picks in one launch, and the scale
+    stage's three sweeps (1,009 x 576, 1,009 x 384, 1,709 x 96, x 41) in
+    one launch."""
     import numpy as np
 
     rng = np.random.default_rng(5)
@@ -1633,6 +1687,13 @@ def synthetic_ccta_calls(torch):
             return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device=dev)
         unit = torch.nn.functional.normalize(t((750, 3)), dim=1)
         xs = torch.tensor(-2.0 + 0.1 * np.arange(41), dtype=dtype, device=dev)
+        stage = [(1009, 576), (1009, 384), (1709, 96)]
+        s_pts, s_ref = t((3727, 3)), t((1056, 3))
+        s_unit = torch.nn.functional.normalize(t((3727, 3)), dim=1)
+        sweeps, po, ro = [], 0, 0
+        for n, m in stage:
+            sweeps.append((po, n, ro, m, 41))
+            po, ro = po + n, ro + m
         island = t((18864 + 21587, 3))
         picks = t((4036 + 576, 3))
         calls += [
@@ -1642,9 +1703,10 @@ def synthetic_ccta_calls(torch):
             ("radius_count_batch", (island, island, [(0, 18864, 18864, 21587, 3.999, 4.001),
                                                      (0, 18864, 0, 18864, 3.999, 4.001)]), {}),
             ("nearest", (picks[:4036], picks[4036:]), {}),
-            ("nearest", (t((25000, 3)), t((50, 3))), {}),
+            ("nearest", (t((26449, 3)), t((50, 3))), {}),
             ("nearest_batch", (picks, picks, [(0, 4036, 4036, 576), (4036, 576, 0, 4036)]), {}),
             ("morph_sweep", (t((750, 3)), unit, t((576, 3)), xs), {}),
+            ("morph_sweep_batch", (s_pts, s_unit, s_ref, xs, sweeps), {}),
         ]
     return calls
 
@@ -1671,7 +1733,7 @@ def phase_ccta(torch, mt, profile=False):
         mod.launches = 0
     ck.reset_stats()
     trace.reset()
-    with recorded_ccta_calls() as calls:
+    with recorded_ccta_calls() as calls, recorded_rays() as rays:
         t0 = time.perf_counter()
         run32 = ccta_run(torch, mt, case)
         first_s = time.perf_counter() - t0
@@ -1684,6 +1746,15 @@ def phase_ccta(torch, mt, profile=False):
     check(launches["radius_count"] <= CCTA_COUNT_LAUNCHES_MAX,
           f"{launches['radius_count']} count launches in one run, more than "
           f"{CCTA_COUNT_LAUNCHES_MAX}")
+    check(launches["morph_sweep"] <= CCTA_SWEEP_LAUNCHES_MAX,
+          f"{launches['morph_sweep']} morph-sweep launches in one run, more than "
+          f"{CCTA_SWEEP_LAUNCHES_MAX}")
+    sweep_calls = [args[4] if name == "morph_sweep_batch" else [args]
+                   for name, args, _ in calls if CCTA_WRAPPERS[name] == "morph_sweep"]
+    check(len(sweep_calls) == 1 and len(sweep_calls[0]) == 3,
+          f"the scale stage's sweeps went in {len(sweep_calls)} call(s), not one call of three")
+    say("ccta", "occlusion ray tests (rays x faces = pairs; ROADMAP B6's kernel is due above "
+                "1e9): " + ", ".join(f"{r} x {f} = {r * f:.4e}" for r, f in rays))
     got32 = {k: (v["rows"], v["flagged"], v["changed"]) for k, v in stats32.items()}
     check(got32 == CCTA_CERTIFICATION_F32,
           f"f32 certification {got32}, expected {CCTA_CERTIFICATION_F32}")

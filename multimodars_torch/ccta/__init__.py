@@ -76,11 +76,23 @@ def label(
 def scale(results: dict, cl_vessel, cl_aorta, aligned_frames) -> dict:
     """Scale the distal, aortic (+removed) and proximal regions by their
     optimal centerline-morphing factors.  Parity: ccta/__init__.py:134-225."""
-    prox_scaling, distal_scaling = manipulating.find_distal_and_proximal_scaling(
+    # the three sweeps are independent: their host halves first (the
+    # aortic one silent, its extraction error held for its finish), then
+    # one kernel launch for all of them, then the finishes in the
+    # sequential order, which prints and raises as that order does
+    pd_states = manipulating.find_distal_and_proximal_scaling_start(
         frames=aligned_frames, centerline=cl_vessel, results=results
     )
-    aortic_scaling = manipulating.find_aorta_scaling(
+    aortic_state = manipulating.find_aorta_scaling_start(
         frames=aligned_frames, cl_aorta=cl_aorta, results=results
+    )
+    aortic_live = aortic_state[0] == "ok"
+    costs = kernels._sweep_launch([*pd_states, *([aortic_state[1]] if aortic_live else [])])
+    prox_scaling, distal_scaling = manipulating.find_distal_and_proximal_scaling_finish(
+        pd_states, costs[:2]
+    )
+    aortic_scaling = manipulating.find_aorta_scaling_finish(
+        aortic_state, costs[2] if aortic_live else None
     )
 
     # regions go in as vertex-index arrays (the results side channel) so

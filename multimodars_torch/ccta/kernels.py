@@ -12,8 +12,8 @@ kernel on the card and its plain PyTorch version on the CPU
   :func:`centerline_bounded_mask`, the occlusion membership) on
   ``ops.radius_count``;
 - nearest neighbours (:func:`min_sqdist`) on ``ops.nearest``;
-- the morph sweep's cost table (:func:`_grid_sweep_scaling`) on
-  ``ops.morph_sweep``.
+- the morph sweep's cost tables (:func:`_sweep_launch`, every sweep of a
+  stage in one launch) on ``ops.morph_sweep``.
 
 Every pairwise evaluation takes its primitive whatever its size.  Both sets
 are centred at their float64 bounding-box midpoint and cast to
@@ -43,7 +43,7 @@ from ..models.frame import PyFrame
 from ..ops import morph_sweep as _morph_sweep_op
 from ..ops import nearest as _nearest_op
 from ..ops import radius_count as _radius_count_op
-from ..utils.device import to_device, to_device_packed, to_host
+from ..utils.device import to_device_packed, to_host
 from ..utils.trace import trace
 from .mesh import fix_faces_winding
 
@@ -91,10 +91,6 @@ def _centred(*sets: np.ndarray):
 
 def _eps() -> float:
     return float(torch.finfo(config.compute_dtype).eps)
-
-
-def _on_device(arr: np.ndarray) -> torch.Tensor:
-    return to_device(arr, config.compute_dtype)
 
 
 def _radius_band(radius: float, maxc: float) -> Tuple[float, float, float]:
@@ -947,46 +943,85 @@ def _symmetric_nn_distance(a: np.ndarray, b: np.ndarray) -> float:
     return float(math.sqrt((d_ab.mean() + d_ba.mean()) / 2.0))
 
 
-@trace("ccta.morph_sweep")
-def _grid_sweep_scaling(points: np.ndarray, reference: np.ndarray, cl_pos: np.ndarray) -> float:
-    """Sweep x in [-2, 2] step 0.1 of the morphing and keep the x minimising
-    the symmetric NN distance (strictly-less, first wins).
-    Parity: scale_coronary.rs:65-130.
-
-    The morph-sweep kernel evaluates all 41 offsets in both directions in
-    one launch, in the compute dtype; every offset whose cost lies within
-    ``2 cmin 1e-4 + 1e-12`` of the minimum is re-evaluated exactly in
-    float64 (the true argmin is provably among them) and the strict-less,
-    first-wins scan over those picks the winner."""
+def _sweep_offsets() -> np.ndarray:
+    """The morph sweep's offsets, x in [-2, 2] step 0.1
+    (scale_coronary.rs:65-130)."""
     start, end, step = -2.0, 2.0, 0.1
     steps = int(round((end - start) / step))
+    return start + step * np.arange(steps + 1)
+
+
+def _sweep_start(points: np.ndarray, reference: np.ndarray, cl_pos: np.ndarray):
+    """Host half of :func:`_grid_sweep_scaling`, before the kernel: the
+    nearest-centerline pass, the unit directions and the centred sets.
+    Returns a state for :func:`_sweep_launch` and :func:`_sweep_finish`:
+    ``("inf",)`` for an empty set (every candidate cost is inf, and the
+    strict < of the scan never fires), ``("host", ...)`` for non-finite
+    points (the exact scan over every offset), else ``("device", ...)``."""
     if len(points) == 0 or len(reference) == 0:
-        # degenerate inputs: every candidate cost is inf, and the strict <
-        # of the scan never fires
-        return float("inf")
+        return ("inf",)
     # the nearest-centerline direction is scaling-invariant: precompute once
     _, nearest = min_sqdist(points, cl_pos)
     rel = points - cl_pos[nearest]
     norms = np.linalg.norm(rel, axis=1)
     ok = norms > 0.0
     unit = np.where(ok[:, None], rel / np.where(ok, norms, 1.0)[:, None], 0.0)
-    xs = start + step * np.arange(steps + 1)
-
+    xs = _sweep_offsets()
     pts64 = np.ascontiguousarray(points, dtype=np.float64)
     ref64 = np.ascontiguousarray(reference, dtype=np.float64)
-    if np.isfinite(pts64).all() and np.isfinite(ref64).all():
-        (pc, rc), _ = _centred(pts64, ref64)
-        fwd, bwd = _morph_sweep_op.morph_sweep(
-            _on_device(pc), _on_device(unit), _on_device(rc), _on_device(xs)
-        )
-        fwd = fwd.cpu().numpy().astype(np.float64)
-        bwd = bwd.cpu().numpy().astype(np.float64)
-        costs = np.sqrt((fwd / len(pts64) + bwd / len(ref64)) / 2.0)
+    if not (np.isfinite(pts64).all() and np.isfinite(ref64).all()):
+        return ("host", xs, points, unit, reference)
+    (pc, rc), _ = _centred(pts64, ref64)
+    return ("device", xs, points, unit, reference, pc, rc)
+
+
+@trace("ccta.morph_sweep")
+def _sweep_launch(states) -> List:
+    """The cost tables of every ``"device"`` state of ``states``: their
+    centred points, unit directions, references and the offsets go up in
+    one pinned copy, through one morph-sweep launch (per
+    ``ops.morph_sweep.MAX_SWEEPS`` sweeps) and come back in one pinned
+    copy.  Returns per state its float64 costs ``sqrt((fwd / N + bwd / M) /
+    2)`` [K], or None."""
+    costs: List = [None] * len(states)
+    live = [k for k, st in enumerate(states) if st[0] == "device"]
+    for c0 in range(0, len(live), _morph_sweep_op.MAX_SWEEPS):
+        chunk = [states[k] for k in live[c0:c0 + _morph_sweep_op.MAX_SWEEPS]]
+        xs = chunk[0][1]
+        xs_rows = np.zeros((-(-len(xs) // 3), 3))
+        xs_rows.reshape(-1)[:len(xs)] = xs
+        # points, then units in the same layout, then references, then xs
+        sets = ([st[5] for st in chunk] + [st[3] for st in chunk] + [st[6] for st in chunk]
+                + [xs_rows])
+        buf, offs = to_device_packed(sets, config.compute_dtype)
+        S = len(chunk)
+        delta = offs[S]  # the unit block's shift from the point block
+        xs_dev = buf[offs[-1]:].reshape(-1)[:len(xs)]
+        sweeps = [(offs[q], len(st[5]), offs[2 * S + q], len(st[6]), len(xs))
+                  for q, st in enumerate(chunk)]
+        out = to_host(_morph_sweep_op.morph_sweep_batch(
+            buf[:delta], buf[delta:2 * delta], buf, xs_dev, sweeps)).astype(np.float64)
+        for q, k in enumerate(live[c0:c0 + _morph_sweep_op.MAX_SWEEPS]):
+            n, m = sweeps[q][1], sweeps[q][3]
+            costs[k] = np.sqrt((out[0, q] / n + out[1, q] / m) / 2.0)
+    return costs
+
+
+def _sweep_finish(state, costs) -> float:
+    """Resolve half of :func:`_grid_sweep_scaling`.  Every offset whose
+    device cost lies within ``2 cmin 1e-4 + 1e-12`` of the minimum is
+    re-evaluated exactly in float64 (the true argmin is provably among
+    them; every offset for non-finite points) and the strict-less,
+    first-wins scan over those picks the winner."""
+    if state[0] == "inf":
+        return float("inf")
+    xs, points, unit, reference = state[1:5]
+    if state[0] == "device":
         cmin = float(costs.min())
         band = 2.0 * cmin * 1e-4 + 1e-12
         cand = np.nonzero(costs <= cmin + band)[0]
         device_pick = int(np.argmin(costs))
-    else:  # non-finite points: the exact scan over every offset
+    else:
         cand = np.arange(len(xs))
         device_pick = -1
     best_x = float("inf")
@@ -1004,17 +1039,31 @@ def _grid_sweep_scaling(points: np.ndarray, reference: np.ndarray, cl_pos: np.nd
     return best_x
 
 
-def find_proximal_distal_scaling(
+def _sweeps_resolved(states) -> List[float]:
+    """Launch and finish ``states`` together."""
+    return [_sweep_finish(st, c) for st, c in zip(states, _sweep_launch(states))]
+
+
+def _grid_sweep_scaling(points: np.ndarray, reference: np.ndarray, cl_pos: np.ndarray) -> float:
+    """Sweep x in [-2, 2] step 0.1 of the morphing and keep the x minimising
+    the symmetric NN distance (strictly-less, first wins).
+    Parity: scale_coronary.rs:65-130.  The morph-sweep kernel evaluates
+    all 41 offsets in both directions in the compute dtype, and the finish
+    certifies its pick (:func:`_sweep_finish`)."""
+    return _sweeps_resolved([_sweep_start(points, reference, cl_pos)])[0]
+
+
+def find_proximal_distal_scaling_start(
     anomalous_points: Sequence[Coords3],
     n_proximal: int,
     n_distal: int,
     centerline: PyCenterline,
     proximal_reference: Sequence[Coords3],
     distal_reference: Sequence[Coords3],
-) -> Tuple[float, float]:
-    """Optimal morphing scalings for the proximal/distal anomalous-segment
-    ends.  Parity: centerline_based_diameter_optimization
-    (scale_coronary.rs:90-131)."""
+):
+    """Host half of :func:`find_proximal_distal_scaling` before the sweep
+    kernel: the two region picks and both sweeps' starts, as the states
+    ``(proximal, distal)`` for :func:`_sweep_launch` / :func:`_sweep_finish`."""
     anomalous = _as_array(anomalous_points)
     prox_ref = _as_array(proximal_reference)
     dist_ref = _as_array(distal_reference)
@@ -1047,11 +1096,24 @@ def find_proximal_distal_scaling(
         )
     else:
         dist_pts = np.zeros((0, 3))
+    return (_sweep_start(prox_pts, prox_ref, cl_pos), _sweep_start(dist_pts, dist_ref, cl_pos))
 
-    return (
-        _grid_sweep_scaling(prox_pts, prox_ref, cl_pos),
-        _grid_sweep_scaling(dist_pts, dist_ref, cl_pos),
-    )
+
+def find_proximal_distal_scaling(
+    anomalous_points: Sequence[Coords3],
+    n_proximal: int,
+    n_distal: int,
+    centerline: PyCenterline,
+    proximal_reference: Sequence[Coords3],
+    distal_reference: Sequence[Coords3],
+) -> Tuple[float, float]:
+    """Optimal morphing scalings for the proximal/distal anomalous-segment
+    ends, both sweeps in one launch.  Parity:
+    centerline_based_diameter_optimization (scale_coronary.rs:90-131)."""
+    prox, dist = _sweeps_resolved(find_proximal_distal_scaling_start(
+        anomalous_points, n_proximal, n_distal, centerline, proximal_reference,
+        distal_reference))
+    return prox, dist
 
 
 def _region_pick_from_d2(arr: np.ndarray, d2: np.ndarray, n_points: int):
@@ -1066,6 +1128,18 @@ def _region_pick_from_d2(arr: np.ndarray, d2: np.ndarray, n_points: int):
     return arr[selected], mask
 
 
+def find_aortic_scaling_start(
+    intramural_points: Sequence[Coords3],
+    reference_points: Sequence[Coords3],
+    centerline: PyCenterline,
+):
+    """Host half of :func:`find_aortic_scaling` before the sweep kernel: a
+    state for :func:`_sweep_launch` / :func:`_sweep_finish`."""
+    return _sweep_start(
+        _as_array(intramural_points), _as_array(reference_points), centerline.positions()
+    )
+
+
 def find_aortic_scaling(
     intramural_points: Sequence[Coords3],
     reference_points: Sequence[Coords3],
@@ -1073,9 +1147,8 @@ def find_aortic_scaling(
 ) -> float:
     """Grid sweep of the aortic morphing.  Parity:
     centerline_based_aortic_diameter_optimization (scale_coronary.rs:65-88)."""
-    return _grid_sweep_scaling(
-        _as_array(intramural_points), _as_array(reference_points), centerline.positions()
-    )
+    return _sweeps_resolved([find_aortic_scaling_start(
+        intramural_points, reference_points, centerline)])[0]
 
 
 def find_aortic_wall_scaling(

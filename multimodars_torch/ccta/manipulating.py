@@ -24,9 +24,11 @@ from .kernels import (
     _morph_points_from_nn,
     build_adjacency_map,
     min_sqdist,
-    find_aortic_scaling as _kernel_find_aortic_scaling,
+    _sweep_finish,
+    _sweep_launch,
+    find_aortic_scaling_start as _kernel_find_aortic_scaling_start,
     find_aortic_wall_scaling as _kernel_find_aortic_wall_scaling,
-    find_proximal_distal_scaling as _kernel_find_proximal_distal_scaling,
+    find_proximal_distal_scaling_start as _kernel_find_proximal_distal_scaling_start,
 )
 from .mesh import Mesh, concatenate
 from ..utils.trace import trace
@@ -463,6 +465,22 @@ def find_distal_and_proximal_scaling(
 ) -> Tuple[float, float]:
     """Optimal proximal/distal radial scalings vs the first/last imaging
     frames.  Parity: manipulating.py:248-305."""
+    states = find_distal_and_proximal_scaling_start(
+        frames, centerline, results, dist_range, prox_range
+    )
+    return find_distal_and_proximal_scaling_finish(states, _sweep_launch(states))
+
+
+def find_distal_and_proximal_scaling_start(
+    frames,
+    centerline,
+    results: dict,
+    dist_range: int = 3,
+    prox_range: int = 2,
+):
+    """Host half of :func:`find_distal_and_proximal_scaling` before the
+    sweep kernel: the (proximal, distal) sweep states, which
+    ``ccta.kernels._sweep_launch`` evaluates together with other sweeps."""
     def lumen_xyz(frame_slice):
         return [
             (p.x, p.y, p.z) for f in frame_slice for p in f.lumen.points
@@ -471,7 +489,7 @@ def find_distal_and_proximal_scaling(
     anomalous = results["anomalous_points"]
     n_section = int(np.ceil(0.25 * len(anomalous)))
     print("searching proximal/distal radial scaling factors...")
-    prox_scaling, dist_scaling = _kernel_find_proximal_distal_scaling(
+    return _kernel_find_proximal_distal_scaling_start(
         anomalous,
         n_section,
         n_section,
@@ -479,6 +497,12 @@ def find_distal_and_proximal_scaling(
         lumen_xyz(frames[0:prox_range]),
         lumen_xyz(frames[-dist_range:]),
     )
+
+
+def find_distal_and_proximal_scaling_finish(states, costs) -> Tuple[float, float]:
+    """Resolve the (proximal, distal) sweep states from their cost tables."""
+    prox_scaling = _sweep_finish(states[0], costs[0])
+    dist_scaling = _sweep_finish(states[1], costs[1])
     print(
         f"  proximal {np.round(prox_scaling, 2)} mm / "
         f"distal {np.round(dist_scaling, 2)} mm"
@@ -489,15 +513,36 @@ def find_distal_and_proximal_scaling(
 def find_aorta_scaling(frames, cl_aorta, results: dict) -> float:
     """Optimal aortic radial scaling vs reconstructed wall points.
     Parity: manipulating.py:308-349."""
-    reference_points = _extract_wall_from_frames(frames)
-    if reference_points is None:
-        raise ValueError(
-            "No aortic wall points found in frames for scaling reference"
-        )
+    state = find_aorta_scaling_start(frames, cl_aorta, results)
+    costs = _sweep_launch([state[1]])[0] if state[0] == "ok" else None
+    return find_aorta_scaling_finish(state, costs)
+
+
+def find_aorta_scaling_start(frames, cl_aorta, results: dict):
+    """Host half of :func:`find_aorta_scaling` before the sweep kernel,
+    silent: ``("ok", sweep state)``, or ``("err", exception)`` for an
+    extraction error, which :func:`find_aorta_scaling_finish` raises, as the
+    sequential order would have raised it there."""
+    try:
+        reference_points = _extract_wall_from_frames(frames)
+        if reference_points is None:
+            raise ValueError(
+                "No aortic wall points found in frames for scaling reference"
+            )
+        return ("ok", _kernel_find_aortic_scaling_start(
+            results["rca_removed_points"], reference_points, cl_aorta
+        ))
+    except Exception as exc:  # surfaced at finish, like the serial order
+        return ("err", exc)
+
+
+def find_aorta_scaling_finish(state, costs) -> float:
+    """Resolve :func:`find_aorta_scaling_start`'s state from its cost table
+    (None when it holds an error, which is raised here)."""
+    if state[0] == "err":
+        raise state[1]
     print("searching aortic radial scaling factor...")
-    scaling = _kernel_find_aortic_scaling(
-        results["rca_removed_points"], reference_points, cl_aorta
-    )
+    scaling = _sweep_finish(state[1], costs)
     print(f"  aortic {np.round(scaling, 2)} mm")
     return scaling
 

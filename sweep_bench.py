@@ -15,15 +15,26 @@ this script) and builds its kernels.
   paths give it (chip_smoke.py records them from the runs themselves): CUDA
   events around 5 calls in a row, the median of 3 such windows.
 - ``--family ccta`` times ``radius_count.radius_count(a, b, r2lo, r2hi,
-  flags=...)`` and ``nearest.nearest(a, b)``, the signatures every
-  checkout since the CCTA toolkit's port has, on seeded tube-like clouds at
-  the CCTA fusion run's recorded shapes (chip_smoke.py phase 8): CUDA events
-  around 5 calls (median of 11 windows), and for every shape the kernel's
-  device time per launch (torch.profiler, 20 calls) and the host time per
-  call (the wrapper's enqueue: 40 calls with one synchronise after them,
-  median of 11 windows).
-  ``--sass`` adds the instructions per pair of each kernel's inner loop,
-  read from ``cuobjdump -sass`` of the libraries just built.
+  flags=...)``, ``nearest.nearest(a, b)`` and ``morph_sweep.morph_sweep(
+  points, unit, reference, xs)``, the signatures every checkout since the
+  CCTA toolkit's port has, on seeded tube-like clouds at the CCTA fusion
+  run's recorded shapes (chip_smoke.py phase 8): CUDA events around 5 calls
+  (median of 11 windows), and for every shape the kernel's device time per
+  launch (torch.profiler, 20 calls) and the host time per call (the
+  wrapper's enqueue: 40 calls with one synchronise after them, median of 11
+  windows).  The scale stage's three sweeps are timed alone and as one
+  stage: one ``morph_sweep.morph_sweep_batch`` call where the checkout has
+  it, else its three ``morph_sweep`` calls; for a sweep or a stage the
+  device time is per call, over every morph-sweep kernel and every fill
+  or memset a call makes.
+  ``--sass`` adds the instructions per pair (per offset and pair for the
+  sweep) of each kernel's inner loop, read from ``cuobjdump -sass`` of the
+  libraries just built.
+- ``--family ccta-wall`` times the CCTA fusion run of chip_smoke.py phase 8
+  (``label`` -> ``scale`` -> ``stitch`` in f32 on the 57,606-vertex case,
+  the public entry points every checkout since the toolkit's port has):
+  the host clock around each run, ending in a synchronise, median of 11
+  after 2 warm-ups, and the mean of the ``ccta.*`` stage spans.
 
 Bounds and shares are chip_smoke.py's.  To compare two versions, time them
 in one run on one card, in turns: parent, change, change, parent.
@@ -114,9 +125,17 @@ def tube_cloud(np, n, seed):
     return np.stack([r * np.cos(th) + 0.1 * t, r * np.sin(th), t], 1)
 
 
-def device_ms(torch, fn, name, calls=20):
-    """The device time of one launch of the kernel whose name holds
-    ``name``: torch.profiler over ``calls`` calls."""
+def _device_us(evt):
+    """An averaged profiler event's device time in µs (the attribute's name
+    differs between torch versions)."""
+    got = getattr(evt, "device_time_total", None)
+    return evt.cuda_time_total if got is None else got
+
+
+def device_ms(torch, fn, name, calls=20, also=()):
+    """(device ms per call, launches per call) of the kernels whose name
+    holds ``name``, plus the device time of every kernel, fill or memset
+    whose name holds one of ``also``: torch.profiler over ``calls`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -127,10 +146,11 @@ def device_ms(torch, fn, name, calls=20):
         torch.cuda.synchronize()
     total, count = 0.0, 0
     for evt in prof.key_averages():
-        if name in evt.key:
-            total += getattr(evt, "device_time_total", None) or evt.cuda_time_total
-            count += evt.count
-    return total / 1e3 / count if count else float("nan")
+        if name in evt.key or any(a in evt.key.lower() for a in also):
+            total += _device_us(evt)
+            if name in evt.key:
+                count += evt.count
+    return total / 1e3 / calls, count / calls
 
 
 def events_ms(torch, fn, calls=5, windows=11):
@@ -203,11 +223,17 @@ def report_sass(tag):
     from this run's libraries (``cuobjdump`` beside ``nvcc``)."""
     import subprocess
 
-    from multimodars_torch.ops import _cuda_build, nearest, radius_count
+    from multimodars_torch.ops import _cuda_build, morph_sweep, nearest, radius_count
 
+    for name, (_, log) in sorted(_cuda_build.reports.items()):
+        for line in log.splitlines():
+            if "registers" in line or "stack frame" in line:
+                print(f"[bench-ccta] {tag}: ptxas {name}: {line.strip()}", flush=True)
     cuobjdump = Path(_cuda_build._nvcc("cuobjdump")).with_name("cuobjdump")
-    for mod in (radius_count, nearest):
+    for mod in (radius_count, nearest, morph_sweep):
         lib = _cuda_build.library_path(mod.SOURCE)
+        if not lib.exists():  # not built by the shapes this run timed
+            continue
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
                               capture_output=True, text=True).stdout
         for name, n, pairs, ops in sass_per_pair(sass):
@@ -237,7 +263,8 @@ def bench_ccta(torch, np, tag):
             def fn():
                 return radius_count.radius_count(*args, **kw)
         ms = events_ms(torch, fn)
-        dms = device_ms(torch, fn, f"{kernel}_kernel")
+        per_call, launches = device_ms(torch, fn, f"{kernel}_kernel")
+        dms = per_call / launches if launches else float("nan")
         hms = host_ms(torch, fn)
         bound, by = ccta_bound(torch, kernel, args, kw)
         print(f"[bench-ccta] {tag}: {name}: events {ms:.4f} ms, device {dms:.4f} ms a launch, "
@@ -246,13 +273,121 @@ def bench_ccta(torch, np, tag):
               f"device time (card after: {card_state()})", flush=True)
 
 
+# the scale stage's sweeps at 57,606 vertices: (name, [(n, m), ...]), 41
+# offsets each
+MORPH_SHAPES = [
+    ("distal sweep [1009] x [576] x 41", [(1009, 576)]),
+    ("proximal sweep [1009] x [384] x 41", [(1009, 384)]),
+    ("aortic sweep [1709] x [96] x 41", [(1709, 96)]),
+    ("the stage's three sweeps", [(1009, 576), (1009, 384), (1709, 96)]),
+]
+
+
+def sweep_sets(np, n, m, seed):
+    """Points on a 1.3 mm tube around a 20 mm centerline, their radial
+    directions, and reference points on a 1.9 mm tube: a sweep's geometry."""
+    rng = np.random.default_rng(seed)
+    th, t = rng.uniform(0.0, 2.0 * math.pi, n), rng.uniform(0.0, 20.0, n)
+    unit = np.stack([np.cos(th), np.sin(th), np.zeros(n)], 1)
+    pts = unit * 1.3 + np.stack([np.zeros(n), np.zeros(n), t], 1)
+    th2, t2 = rng.uniform(0.0, 2.0 * math.pi, m), rng.uniform(2.0, 18.0, m)
+    ref = np.stack([1.9 * np.cos(th2), 1.9 * np.sin(th2), t2], 1)
+    return pts - [0, 0, 10.0], unit, ref - [0, 0, 10.0]
+
+
+def bench_morph(torch, np, tag):
+    from chip_smoke import card_state, ccta_bound
+
+    from multimodars_torch.ops import morph_sweep
+
+    dev = torch.device("cuda", 0)
+    batched = hasattr(morph_sweep, "morph_sweep_batch")
+    for dtype in ("float32", "float64"):
+        dt = getattr(torch, dtype)
+        xs = torch.tensor(-2.0 + 0.1 * np.arange(41), dtype=dt, device=dev)
+        for k, (name, sizes) in enumerate(MORPH_SHAPES):
+            sets = [[torch.tensor(a, dtype=dt, device=dev) for a in sweep_sets(np, n, m, 3 * k + q)]
+                    for q, (n, m) in enumerate(sizes)]
+            pts, unit, ref = (torch.cat([s[i] for s in sets]) for i in range(3))
+            sweeps, po, ro = [], 0, 0
+            for n, m in sizes:
+                sweeps.append((po, n, ro, m, 41))
+                po, ro = po + n, ro + m
+            if len(sizes) > 1 and batched:
+                how = "one batched call"
+
+                def fn():
+                    return morph_sweep.morph_sweep_batch(pts, unit, ref, xs, sweeps)
+            else:
+                how = f"{len(sizes)} call(s)"
+
+                def fn():
+                    return [morph_sweep.morph_sweep(*s, xs) for s in sets]
+            ms = events_ms(torch, fn)
+            dms, per_call = device_ms(torch, fn, "morph_sweep", also=("fill", "memset"))
+            hms = host_ms(torch, fn)
+            bound, by = ccta_bound(torch, "morph_sweep_batch", (pts, unit, ref, xs, sweeps), {})
+            print(f"[bench-ccta] {tag}: {dtype[:1]}{dtype[-2:]} {name} ({how}): events {ms:.4f} ms, "
+                  f"device {dms:.4f} ms a call over {per_call:g} launch(es), host {hms:.4f} ms "
+                  f"a call, bound {bound:.5f} ms ({by}), {100.0 * bound / ms:.1f}% of bound by "
+                  f"events, {100.0 * bound / dms:.1f}% by device time (card after: "
+                  f"{card_state()})", flush=True)
+
+
+def bench_ccta_wall(torch, tag, runs=11):
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from chip_smoke import CCTA_RCA_P0, CCTA_SCALE, ccta_case
+
+    import multimodars_torch as mt
+    from multimodars_torch.utils import trace
+
+    case = ccta_case(mt)
+    mesh, cl_ao, cl_rca, cl_lca, geom = case
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            results, (rca_cl, _lca_cl, ao_cl) = mt.label(
+                mesh.copy(), cl_ao, cl_rca, cl_lca, aligned_frames=geom.frames,
+                anomalous_rca=True, control_plot=False)
+            if not results["rca_removed_points"]:
+                ao = np.asarray(results["aorta_points"])
+                near = np.linalg.norm(ao - np.asarray(CCTA_RCA_P0), axis=1) < 5.0
+                results["rca_removed_points"] = [tuple(p) for p in ao[near][:100]]
+            scaled = mt.scale(results, rca_cl, ao_cl, geom.frames)
+            mt.stitch(scaled, geom, region_remove=("anomalous_points",),
+                      prox_start_mode="nearest_iv", dist_start_mode="nearest_iv",
+                      n_points_iv_cont=64 * CCTA_SCALE)
+        torch.cuda.synchronize()
+
+    for _ in range(2):
+        run()
+    trace.reset()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    spans = {k: v[0] / runs for k, v in trace.summary().items()
+             if k in ("ccta.label", "ccta.scale", "ccta.stitch", "ccta.morph_sweep")}
+    print(f"[bench-ccta-wall] {tag}: label -> scale -> stitch f32, median of {runs} after 2 "
+          f"warm-ups: {sorted(times)[runs // 2]:.4f} s (min {min(times):.4f}, max "
+          f"{max(times):.4f}); mean spans " + ", ".join(f"{k} {v:.4f} s" for k, v in
+                                                       sorted(spans.items())), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose multimodars_torch is timed")
     ap.add_argument("--tag", default="", help="label printed on every line")
-    ap.add_argument("--family", choices=["sweep", "ccta"], default="sweep",
-                    help="the sweep kernel, or the CCTA count and pick kernels")
+    ap.add_argument("--family", choices=["sweep", "ccta", "ccta-wall"], default="sweep",
+                    help="the sweep kernel, or the CCTA count, pick and morph-sweep kernels")
+    ap.add_argument("--only-morph", action="store_true",
+                    help="with --family ccta: the morph-sweep shapes alone")
     ap.add_argument("--sass", action="store_true",
                     help="with --family ccta: instructions per pair of the kernels' inner "
                          "loops (cuobjdump -sass)")
@@ -277,8 +412,13 @@ def main() -> int:
         print(f"FAIL: imported {check}, not from {root}")
         return 1
     tag = args.tag or root.name
+    if args.family == "ccta-wall":
+        bench_ccta_wall(torch, tag)
+        return 0
     if args.family == "ccta":
-        bench_ccta(torch, np, tag)
+        if not args.only_morph:
+            bench_ccta(torch, np, tag)
+        bench_morph(torch, np, tag)
         if args.sass:
             report_sass(tag)
         return 0

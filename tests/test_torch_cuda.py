@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written sweep kernel
 against its plain version (at the single path's and the between search's
 shapes), the centerline refine's Hausdorff kernel against its plain version
-and against numpy's float64 table, and the single-pullback, four-phase and
-centerline paths on CUDA against the CPU path.  They skip where
+and against numpy's float64 table, the CCTA kernels (radius count, nearest
+pick, batched morph sweep) against theirs, and the single-pullback,
+four-phase, centerline and CCTA paths on CUDA against the CPU path.  They skip where
 ``torch.cuda.is_available()`` is false.
 
 The machine with the card has no JAX, so this file imports none and is run
@@ -525,6 +526,77 @@ def test_morph_sweep_kernel_matches_plain(cuda, n, m, dtype):
                                    rtol=rtol, atol=0.0)
 
 
+def _morph_inputs(n, m, seed, K, dtype, device):
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((n, 3)) * 3.0
+    u = rng.standard_normal((n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    r = rng.standard_normal((m, 3)) * 3.0
+    return [torch.tensor(x, dtype=dtype, device=device)
+            for x in (p, u, r, -2.0 + 0.1 * np.arange(K))]
+
+
+MORPH_BATCHES = {
+    "stage shapes": [(1009, 576, 41), (1009, 384, 41), (1709, 96, 41)],
+    "four unequal": [(1, 1, 41), (1025, 1300, 41), (37, 5, 1), (3000, 33, 40)],
+    "N = 1, M > a split": [(1, 2500, 41)],
+    "M = 1": [(2049, 1, 41)],
+    "K = 1": [(700, 576, 1), (129, 17, 1)],
+}
+
+
+@pytest.mark.parametrize("case", list(MORPH_BATCHES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_morph_sweep_batch_kernel_matches_ordered_and_plain(cuda, case, dtype):
+    """Up to four sweeps of unequal sizes in one launch: the [2, S, K]
+    table equals ``morph_sweep_batch_ordered`` (at the plan the wrapper
+    takes) bit for bit in both dtypes, and the plain version within rel
+    1e-12 (float64) / 1e-4 (float32); entries past a sweep's K are 0."""
+    sizes = MORPH_BATCHES[case]
+    K_all = max(K for _, _, K in sizes)
+    sets = [_morph_inputs(n, m, 7 * s + n, K_all, dtype, cuda) for s, (n, m, _) in
+            enumerate(sizes)]
+    pts = torch.cat([s[0] for s in sets])
+    unit = torch.cat([s[1] for s in sets])
+    ref = torch.cat([s[2] for s in sets])
+    xs = sets[0][3]
+    sweeps, po, ro = [], 0, 0
+    for (n, m, K) in sizes:
+        sweeps.append((po, n, ro, m, K))
+        po += n
+        ro += m
+    launches = msw.launches
+    got = msw.morph_sweep_batch(pts, unit, ref, xs, sweeps)
+    torch.cuda.synchronize()
+    assert msw.launches == launches + 1
+    f64 = dtype == torch.float64
+    plans = msw.launch_plan(sweeps, cuda, f64)
+    ordered = msw.morph_sweep_batch_ordered(pts, unit, ref, xs, sweeps, plans)
+    plain = msw.morph_sweep_batch_plain(pts, unit, ref, xs, sweeps)
+    assert torch.equal(got.cpu(), ordered.cpu())
+    rtol = 1e-12 if f64 else 1e-4
+    np.testing.assert_allclose(got.double().cpu().numpy(), plain.double().cpu().numpy(),
+                               rtol=rtol, atol=0.0)
+    for s, (_, _, K) in enumerate(sizes):
+        assert not got[:, s, K:].any()
+    # the kernel leaves its scratch as it found it: a second launch agrees
+    assert torch.equal(msw.morph_sweep_batch(pts, unit, ref, xs, sweeps), got)
+
+
+def test_morph_sweep_batch_refuses_bad_sweeps_on_the_card(cuda):
+    p, u, r, xs = _morph_inputs(20, 10, 1, 41, torch.float64, cuda)
+    launches = msw.launches
+    with pytest.raises(ValueError, match="outside"):
+        msw.morph_sweep_batch(p, u, r, xs, [(15, 10, 0, 10, 41)])
+    with pytest.raises(ValueError, match="offsets"):
+        msw.morph_sweep_batch(p, u, r, xs, [(0, 20, 0, 10, 0)])
+    with pytest.raises(ValueError, match="more than"):
+        msw.morph_sweep_batch(p, u, r, xs, [(0, 20, 0, 10, 41)] * 5)
+    with pytest.raises(ValueError, match="expected cuda"):
+        msw.morph_sweep_batch(p, u.cpu(), r, xs, [(0, 20, 0, 10, 41)])
+    assert msw.launches == launches
+
+
 def _island(n, m, seed, dtype, device):
     """Two interleaved tube-like clouds on a 0.25 mm lattice, as the island
     count sees them: many pairs inside 2 mm, exact ties at lattice radii."""
@@ -673,4 +745,4 @@ def test_ccta_slice_on_cuda_matches_cpu(cuda):
         assert np.array_equal(got[2]["mesh"].faces, want[2]["mesh"].faces)
         assert np.array_equal(got[2]["mesh"].vertices, want[2]["mesh"].vertices)
     assert rct.launches > launches[0] and nst.launches > launches[1]
-    assert msw.launches > launches[2]
+    assert msw.launches == launches[2] + 2  # one launch for the three sweeps of a run
