@@ -58,7 +58,14 @@ Phases:
    in f64 on the CPU: the same region index sets and scalings and the same
    stitched mesh (0.0 mm) in all three; each kernel against its plain
    version on the run's recorded inputs, f32 and f64, with ms, bound, share
-   and calls per run; wall clock (median of 5 after 2 warm-ups) and spans
+   and calls per run; wall clock (median of 5 after 2 warm-ups) and spans;
+   then the vessel-tree discretization on the same case: ``label`` ->
+   ``prepare_centerlines`` -> ``discretize_vessel_tree`` at the defaults
+   without and with the B-spline refit, the launches of each step counted
+   (one bounded-flags count launch per branch, one nearest launch per tree
+   for up to 8 walks), region sizes, anchors per walk, contour counts and
+   reference triplets printed, f32 card = f64 card = f64 CPU exactly, the
+   recorded calls against plain, wall clock and spans
 
 Every phase prints its lines; any failure exits non-zero.  The line before
 the last is the kernel summary JSON, the last line is
@@ -1299,6 +1306,13 @@ CCTA_CERTIFICATION_F64 = {"radius_count": (0, 0), "nearest": (432, 2)}
 CCTA_COUNT_LAUNCHES_MAX = 6
 # morph-sweep launches of one run: the scale stage's three sweeps in one
 CCTA_SWEEP_LAUNCHES_MAX = 1
+# the vessel-tree discretization of the labelled case at the wrapper
+# defaults (step 1.0 mm, 100 points a contour): without and with the
+# B-spline refit, one discretize_vessel_tree call each
+TREE_BSPLINE = (False, True)
+# the certification work of those two calls in f32, (rows, flagged,
+# changed) of ccta.kernels.stats' nearest, as every chip run has shown it
+TREE_CERTIFICATION_F32 = (115212, 2, 0)
 
 
 def _basis_from_tangent(t):
@@ -1676,7 +1690,8 @@ def synthetic_ccta_calls(torch):
     41), and the batched entries: the island count with its self-count in
     one launch, a symmetric pair of picks in one launch, and the scale
     stage's three sweeps (1,009 x 576, 1,009 x 384, 1,709 x 96, x 41) in
-    one launch."""
+    one launch, and a vessel tree's three walk picks (20,000 x 21, 17,000 x
+    24, 17,000 x 24) in one launch."""
     import numpy as np
 
     rng = np.random.default_rng(5)
@@ -1696,6 +1711,9 @@ def synthetic_ccta_calls(torch):
             po, ro = po + n, ro + m
         island = t((18864 + 21587, 3))
         picks = t((4036 + 576, 3))
+        # every set at a multiple of 4 rows, as the glue packs them
+        walk = t((54000 + 72, 3))
+        walks = [(0, 20000, 54000, 21), (20000, 17000, 54024, 24), (37000, 17000, 54048, 24)]
         calls += [
             ("radius_count", (island[:18864], island[18864:], 3.999, 4.001), {}),
             ("radius_count", (t((17000, 3)), t((40000, 3)), 3.999, 4.001), {}),
@@ -1705,10 +1723,186 @@ def synthetic_ccta_calls(torch):
             ("nearest", (picks[:4036], picks[4036:]), {}),
             ("nearest", (t((26449, 3)), t((50, 3))), {}),
             ("nearest_batch", (picks, picks, [(0, 4036, 4036, 576), (4036, 576, 0, 4036)]), {}),
+            ("nearest_batch", (walk, walk, walks), {}),
             ("morph_sweep", (t((750, 3)), unit, t((576, 3)), xs), {}),
             ("morph_sweep_batch", (s_pts, s_unit, s_ref, xs, sweeps), {}),
         ]
     return calls
+
+
+def rounded(point):
+    return tuple(round(float(x), 4) for x in point)
+
+
+def tree_label(mt, case):
+    """``label`` on the case as ccta_run labels it: (results, RCA, LCA and
+    aorta centerlines).  The discretization takes a copy of the results."""
+    mesh, cl_ao, cl_rca, cl_lca, geom = case
+    results, (rca_cl, lca_cl, ao_cl) = quiet(
+        mt.label, mesh.copy(), cl_ao, cl_rca, cl_lca, aligned_frames=geom.frames,
+        anomalous_rca=True, control_plot=False,
+    )
+    return results, rca_cl, lca_cl, ao_cl
+
+
+def tree_prepare(mt, labelled):
+    """``prepare_centerlines`` on a copy of the labelled results: the
+    arguments of ``discretize_vessel_tree``."""
+    results, rca_cl, lca_cl, ao_cl = labelled
+    rca2, lca2, prepared = quiet(mt.prepare_centerlines, rca_cl, lca_cl, dict(results))
+    return ao_cl, rca2, lca2, prepared
+
+
+def tree_discretize(torch, mt, prepared, modes=TREE_BSPLINE):
+    """``discretize_vessel_tree`` at the defaults, once per B-spline mode."""
+    trees = [mt.discretize_vessel_tree(*prepared, b_spline=b) for b in modes]
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return trees
+
+
+def tree_stacks(tree):
+    """(name, contours) of every stack of a tree: the three mains, then each
+    side branch."""
+    return ([("aorta", tree.discretized_aorta), ("rca", tree.discretized_rca_main),
+             ("lca", tree.discretized_lca_main)]
+            + [(f"rca side {k + 1}", s) for k, s in enumerate(tree.rca_branches)]
+            + [(f"lca side {k + 1}", s) for k, s in enumerate(tree.lca_branches)])
+
+
+def tree_differences(got, want):
+    """What differs between two trees: contour counts per stack, ids and
+    point indices, coordinates (max |diff| mm), reference points."""
+    import numpy as np
+
+    out = []
+    g_stacks, w_stacks = tree_stacks(got), tree_stacks(want)
+    if [(n, len(s)) for n, s in g_stacks] != [(n, len(s)) for n, s in w_stacks]:
+        return [f"contour counts {[(n, len(s)) for n, s in g_stacks]} vs "
+                f"{[(n, len(s)) for n, s in w_stacks]}"]
+    d = 0.0
+    for (name, gs), (_, ws) in zip(g_stacks, w_stacks):
+        for g, w in zip(gs, ws):
+            if (g.id, g.point_indices.tolist()) != (w.id, w.point_indices.tolist()):
+                out.append(f"{name}: contour {g.id} vs {w.id} or its point indices differ")
+            elif g.n_points:
+                d = max(d, float(np.abs(g.xyz_view() - w.xyz_view()).max()))
+    if d != 0.0:
+        out.append(f"max |contour coordinate diff| {d:.3e} mm")
+    for attr in ("ao_rca", "ao_lca", "rca_references", "lca_references"):
+        if getattr(got, attr) != getattr(want, attr):
+            out.append(f"{attr} differs")
+    return out
+
+
+def phase_ccta_tree(torch, mt, case, profile=False):
+    """The vessel-tree discretization on phase 8's case: ``label`` ->
+    ``prepare_centerlines`` -> ``discretize_vessel_tree`` without and with
+    the B-spline refit.  Launches counted per step; f32 card = f64 card =
+    f64 CPU exactly; the recorded kernel calls against plain; wall clock and
+    spans.  Returns (launches, kernel report)."""
+    from multimodars_torch.ccta import discretization_map
+    from multimodars_torch.ccta import kernels as ck
+    from multimodars_torch.ops import morph_sweep, nearest, radius_count
+    from multimodars_torch.utils import trace
+
+    mods = {"radius_count": radius_count, "nearest": nearest, "morph_sweep": morph_sweep}
+    labelled = tree_label(mt, case)
+
+    # the counted runs: every launch count set to 0 just before each step
+    def counted(step):
+        for mod in mods.values():
+            mod.launches = 0
+        ck.reset_stats()
+        with recorded_ccta_calls() as calls:
+            t0 = time.perf_counter()
+            out = step()
+            seconds = time.perf_counter() - t0
+        return out, {name: mod.launches for name, mod in mods.items()}, calls, seconds
+
+    prepared, prep_launches, prep_calls, prep_s = counted(lambda: tree_prepare(mt, labelled))
+    trees, disc_launches, disc_calls, disc_s = counted(
+        lambda: tree_discretize(torch, mt, prepared))
+    stats = {k: dict(v) for k, v in ck.stats.items()}
+    ao_cl, rca_cl, lca_cl, results = prepared
+    say("ccta-tree", f"f32 first run: prepare_centerlines {prep_s:.3f} s, launches "
+                     f"{prep_launches}; discretize_vessel_tree x{len(TREE_BSPLINE)} "
+                     f"(b_spline {list(TREE_BSPLINE)}) {disc_s:.3f} s, launches {disc_launches}")
+    say("ccta-tree", f"discretization certification {stats}")
+    # label_branches: one bounded-flags launch per branch of each centerline
+    n_branches = len(rca_cl.branch_start_indices) + len(lca_cl.branch_start_indices)
+    check(prep_launches == {"radius_count": n_branches, "nearest": 0, "morph_sweep": 0},
+          f"prepare_centerlines launched {prep_launches}, expected {n_branches} count "
+          f"launches (one per branch) and nothing else")
+    sides = [discretization_map._numbered_regions(results, f"{v}_points") for v in ("rca", "lca")]
+    walks = 3 + len(sides[0]) + len(sides[1])
+    per_tree = -(-walks // nearest.MAX_PAIRS)
+    say("ccta-tree", f"{walks} walks a tree: {per_tree} nearest launch(es) a tree expected "
+                     f"(up to {nearest.MAX_PAIRS} walks a launch)")
+    check(disc_launches == {"radius_count": 0, "nearest": per_tree * len(TREE_BSPLINE),
+                            "morph_sweep": 0},
+          f"discretize_vessel_tree launched {disc_launches}, expected {per_tree} nearest "
+          f"launch(es) a tree and nothing else")
+    if TREE_CERTIFICATION_F32 is not None:
+        got = tuple(stats["nearest"][k] for k in ("rows", "flagged", "changed"))
+        check(got == TREE_CERTIFICATION_F32,
+              f"f32 discretization certification {got}, expected {TREE_CERTIFICATION_F32}")
+
+    keys = ["aorta_points", "rca_points_main", "lca_points_main"] + [
+        f"{v}_points_side_{k + 1}" for v, s in zip(("rca", "lca"), sides) for k in range(len(s))]
+    say("ccta-tree", "regions: " + ", ".join(f"{k} {len(results[k])}" for k in keys))
+    picks = [p for name, args, _ in disc_calls if name == "nearest_batch" for p in args[2]]
+    say("ccta-tree", "walk picks (points x anchors): " + ", ".join(
+        f"[{n}] x [{m}]" for _, n, _, m in picks[:walks]))
+    for b_spline, tree in zip(TREE_BSPLINE, trees):
+        say("ccta-tree", f"b_spline {b_spline}: contours " + ", ".join(
+            f"{name} {len(s)}" for name, s in tree_stacks(tree))
+            + f"; ao_rca {rounded(tree.ao_rca)}, ao_lca {rounded(tree.ao_lca)}")
+        for attr in ("rca_references", "lca_references"):
+            say("ccta-tree", f"b_spline {b_spline}: {attr} (main, counter-clock, clock) "
+                + "; ".join(str(tuple(rounded(p) for p in t)) for t in getattr(tree, attr)))
+        check(tree.discretized_aorta and tree.discretized_rca_main
+              and tree.discretized_lca_main, f"b_spline {b_spline}: a main vessel has no contour")
+        check(all(c.n_points == 100 for _, s in tree_stacks(tree) for c in s),
+              f"b_spline {b_spline}: a contour without 100 points")
+        check(tree.rca_references and tree.lca_references,
+              f"b_spline {b_spline}: no reference triplets")
+
+    # f32 card = f64 card = f64 CPU, label included
+    for device, label in ((None, "f64 card"), ("cpu", "f64 CPU")):
+        with mt.config.use(device=device, dtype=torch.float64):
+            other = tree_discretize(torch, mt, tree_prepare(mt, tree_label(mt, case)))
+        diffs = [f"b_spline {b}: {d}" for b, g, w in zip(TREE_BSPLINE, trees, other)
+                 for d in tree_differences(g, w)]
+        say("ccta-tree", f"f32 card vs {label}: " + ("same contour counts, contours "
+                                                    "(0.0 mm) and reference points"
+                                                    if not diffs else "; ".join(diffs)))
+        check(not diffs, f"f32 card and {label} discretize different trees")
+
+    launches = {k: prep_launches[k] + disc_launches[k] for k in mods}
+    kres = report_ccta_calls(torch, prep_calls + disc_calls, launches)
+
+    def run():
+        return tree_discretize(torch, mt, tree_prepare(mt, labelled), modes=(False,))
+
+    for _ in range(2):
+        run()
+    trace.reset()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[2]
+    say("ccta-tree", f"prepare_centerlines -> discretize_vessel_tree wall clock f32, median "
+                     f"of 5 after 2 warm-ups: {med:.4f} s "
+                     f"(runs {', '.join(f'{t:.4f}' for t in times)})")
+    say("ccta-tree", "spans per run, mean of those runs (s, calls): " + ", ".join(
+        f"{k} {v[0] / 5:.4f} (x{v[1] // 5})"
+        for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
+    if profile:
+        profile_main_path(torch, run, "ccta_tree_profile.json")
+    return launches, kres
 
 
 def phase_ccta(torch, mt, profile=False):
@@ -1839,6 +2033,15 @@ def phase_ccta(torch, mt, profile=False):
         for key, (us, count) in sorted(by_name.items()):
             if key.startswith("Memcpy"):
                 say("profile", f"{key}: {count} copies in the profiled run, {us / 1e3:.4f} ms")
+
+    tree_launches, tree_kres = phase_ccta_tree(torch, mt, case, profile)
+    for name, n in tree_launches.items():
+        launches[name] += n
+    for kernel, row in tree_kres.items():
+        err = max(kres[kernel]["max_abs_err"], row["max_abs_err"])
+        if row["bound_ms"] > kres[kernel]["bound_ms"]:
+            kres[kernel] = row
+        kres[kernel]["max_abs_err"] = err
     return launches, kres
 
 

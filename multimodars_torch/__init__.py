@@ -14,11 +14,14 @@ between-pullback alignment, postprocessing and OBJ export, the cohort entry
 hand-written kernel, ``csrc/hausdorff_batch.cu``), the numpy
 converters, and the CCTA mesh-fusion toolkit (``label`` -> ``scale`` ->
 ``stitch``, ``export_section_stl``, ``create_wall_mesh`` and their
-labeling, morphing, stitching and repair functions), whose pairwise work
-runs on three more hand-written kernels: the banded radius count
-(``csrc/radius_count.cu``), the nearest-neighbour pick
+labeling, morphing, stitching and repair functions) with its vessel-tree
+discretization (``prepare_centerlines`` -> ``discretize_vessel_tree``,
+``discretize_vessel``, ``find_sharp_angles``, ``PyDiscretizedVesselTree``),
+whose pairwise work runs on three more hand-written kernels: the banded
+radius count (``csrc/radius_count.cu``), the nearest-neighbour pick
 (``csrc/nearest.cu``) and the morph sweep's cost table
-(``csrc/morph_sweep.cu``).  It imports torch and numpy only.
+(``csrc/morph_sweep.cu``).  It exports every public name of the JAX
+package and imports torch, numpy and scipy only.
 """
 
 from .config import config  # noqa: F401
@@ -36,6 +39,7 @@ from ._processing import (
     align_manual,
     align_three_point,
     build_adjacency_map,
+    discretize_vessel,
     find_centerline_bounded_points_simple,
     find_proximal_distal_scaling,
     from_array_cohort,
@@ -56,6 +60,7 @@ from .models import (
     PyContour,
     PyContourPoint,
     PyContourType,
+    PyDiscretizedVesselTree,
     PyFrame,
     PyGeometry,
     PyGeometryPair,
@@ -75,6 +80,11 @@ from .ccta.manipulating import (
     scale_region_centerline_morphing,
     stitch_ccta_to_intravascular,
     sync_results_to_mesh,
+)
+from .ccta.discretization_map import (
+    discretize_vessel_tree,
+    find_sharp_angles,
+    prepare_centerlines,
 )
 from .ccta.fixing_functions import (
     fix_and_remesh_stitched_mesh,
@@ -108,6 +118,7 @@ __all__ = [
     "PyInputData",
     "PyRecord",
     "PyContourType",
+    "PyDiscretizedVesselTree",
     "to_array",
     "numpy_to_geometry",
     "numpy_to_centerline",
@@ -157,6 +168,10 @@ __all__ = [
     "plot_results_key",
     "plot_centerline_edges",
     "plot_sharp_angles",
+    "discretize_vessel",
+    "prepare_centerlines",
+    "discretize_vessel_tree",
+    "find_sharp_angles",
     "remove_occluded_points_ray_triangle",
     "adjust_diameter_centerline_morphing_simple",
     "find_points_by_cl_region",

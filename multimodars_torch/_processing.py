@@ -668,3 +668,10 @@ def build_adjacency_map(faces):
     from .ccta.kernels import build_adjacency_map as _f
 
     return _f(faces)
+
+
+def discretize_vessel(centerline, points, branch_id=0, step_size=0.5, n_points=20):
+    """Discretize a vessel into uniform cross-sectional contours."""
+    from .ccta.kernels import discretize_vessel as _f
+
+    return _f(centerline, points, branch_id, step_size, n_points)

@@ -1,6 +1,5 @@
-"""CCTA mesh fusion: labeling, scaling/morphing and stitching of CT
-surface meshes onto intravascular geometry (the discretization half of the
-JAX package's CCTA module is not ported yet).
+"""CCTA mesh fusion: labeling, scaling/morphing, discretization and
+stitching of CT surface meshes onto intravascular geometry.
 
 Parity: ``multimodars/ccta/__init__.py`` of the reference (convenience
 pipeline label -> scale -> stitch -> export)."""

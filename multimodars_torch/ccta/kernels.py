@@ -11,7 +11,9 @@ kernel on the card and its plain PyTorch version on the CPU
 - counts within a radius (:func:`count_within_radius`,
   :func:`centerline_bounded_mask`, the occlusion membership) on
   ``ops.radius_count``;
-- nearest neighbours (:func:`min_sqdist`) on ``ops.nearest``;
+- nearest neighbours (:func:`min_sqdist`, and the Voronoi assignment of
+  every walk of a vessel tree in one launch, :func:`_walk_pick`) on
+  ``ops.nearest``;
 - the morph sweep's cost tables (:func:`_sweep_launch`, every sweep of a
   stage in one launch) on ``ops.morph_sweep``.
 
@@ -25,20 +27,23 @@ equals the exact host answer.  ``stats`` counts, per primitive, the rows
 evaluated, flagged and re-decided, and the re-decisions that changed the
 device's answer.  Exact-identity set operations (the labeling bookkeeping)
 stay host-side on bit-pattern keys, as in the reference; the ray occlusion
-keeps the native grid-DDA of ``io.native``.  The discretization half of the
-JAX module is not ported yet.
+keeps the native grid-DDA of ``io.native``.  The discretization (the
+centerline walk's anchors, its plane projection and the Catmull-Rom
+resample) is host numpy written as the JAX package writes it, so its
+float64 contours equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from ..config import config
 from ..models.centerline import PyCenterline
+from ..models.contour import PyContour
 from ..models.frame import PyFrame
 from ..ops import morph_sweep as _morph_sweep_op
 from ..ops import nearest as _nearest_op
@@ -1174,3 +1179,302 @@ def find_aortic_wall_scaling(
     unit = vector / norm
     t = float(np.dot(ref - closest_aortic, unit))
     return max(t, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# discretization
+# ---------------------------------------------------------------------------
+
+#: one walk of :func:`_walk_pick`: (centerline, points, branch id, step size)
+Walk = Tuple[PyCenterline, Sequence[Coords3], int, float]
+
+
+def _branch_data(centerline: PyCenterline, branch_id: int):
+    idx = np.nonzero(centerline.branch_ids() == branch_id)[0]
+    pos = centerline.positions()[idx]
+    tangents = centerline.tangents()[idx]
+    radii = centerline.radii()[idx]
+    return pos, tangents, radii
+
+
+def _walk_anchors(centerline: PyCenterline, branch_id: int, step_size: float):
+    """Anchor half of the walk: the uniform arc-length anchors of one branch
+    and their interpolated unit tangents, ``(pos [K, 3], tan [K, 3])``, or
+    None for an empty branch.  Parity: projecting.rs:13-117."""
+    pos, tangents, radii = _branch_data(centerline, branch_id)
+    if len(pos) == 0:
+        return None
+
+    seg = np.sqrt(((pos[1:] - pos[:-1]) ** 2).sum(-1))
+    cum = np.concatenate([[0.0], np.cumsum(seg)])
+    total = float(cum[-1])
+
+    sample_positions = []
+    s = 0.0
+    while s <= total + 1e-9:
+        sample_positions.append(s)
+        s += step_size
+    if sample_positions and sample_positions[-1] > total + 1e-6:
+        sample_positions[-1] = total
+
+    anchors_pos = []
+    anchors_tan = []
+    for k, target in enumerate(sample_positions):
+        segi = int(np.searchsorted(cum, target, side="right")) - 1
+        segi = max(segi, 0)
+        if segi >= len(pos) - 1:
+            anchors_pos.append(pos[-1])
+            anchors_tan.append(tangents[-1])
+            continue
+        s0, s1 = cum[segi], cum[segi + 1]
+        t = 0.0 if abs(s1 - s0) < 1e-12 else (target - s0) / (s1 - s0)
+        anchors_pos.append(pos[segi] + t * (pos[segi + 1] - pos[segi]))
+        tangent = tangents[segi] * (1.0 - t) + tangents[segi + 1] * t
+        tn = float(np.linalg.norm(tangent))
+        anchors_tan.append(tangent / tn if tn > 1e-12 else tangent)
+    return np.array(anchors_pos), np.array(anchors_tan)
+
+
+@trace("ccta.walk")
+def _walk_pick(walks: Sequence[Walk]):
+    """Every walk's anchors, points and Voronoi assignment (each point's
+    nearest anchor, exact float64 first-wins), with the assignments of all
+    walks in one :func:`min_sqdist_pairs` call: one nearest-kernel launch
+    per ``ops.nearest.MAX_PAIRS`` walks.  Each pair is centred and
+    certified on its own, so every assignment equals a call of its own.
+    Returns per walk ``(anchors, points, assignment)``: anchors None for an
+    empty branch, assignment None when there is nothing to assign."""
+    staged = []
+    for centerline, points, branch_id, step_size in walks:
+        anchors = _walk_anchors(centerline, branch_id, step_size)
+        staged.append((anchors, _as_array(points) if anchors is not None else None))
+    live = [k for k, (anchors, pts) in enumerate(staged) if anchors is not None and len(pts)]
+    picks = min_sqdist_pairs([(staged[k][1], staged[k][0][0]) for k in live])
+    out = [(anchors, pts, None) for anchors, pts in staged]
+    for k, (_, assignment) in zip(live, picks):
+        out[k] = (*staged[k], assignment)
+    return out
+
+
+def _walk_project(anchors, pts: np.ndarray, assignment) -> List[PyContour]:
+    """Projection half of the walk: each point onto its anchor's plane, one
+    contour per anchor (empty where no point is assigned)."""
+    anchors_pos, anchors_tan = anchors
+    contours: List[PyContour] = []
+    if len(pts):
+        rel = pts - anchors_pos[assignment]
+        n = anchors_tan[assignment]
+        proj = pts - n * (rel * n).sum(-1)[:, None]
+    for k in range(len(anchors_pos)):
+        if len(pts):
+            sel = proj[assignment == k]
+        else:
+            sel = np.zeros((0, 3))
+        contours.append(
+            PyContour.from_arrays(
+                k,
+                k,
+                sel,
+                tuple(anchors_pos[k]),
+                np.full(len(sel), k, dtype=np.int64),
+                np.arange(len(sel), dtype=np.int64),
+                None,
+                None,
+                None,
+                "Lumen",
+            )
+        )
+    return contours
+
+
+def _walk_slices(walks: Sequence[Walk]) -> List[List[PyContour]]:
+    """:func:`walk_centerline_slices` of every walk, with one batched pick."""
+    return [[] if anchors is None else _walk_project(anchors, pts, assignment)
+            for anchors, pts, assignment in _walk_pick(walks)]
+
+
+def walk_centerline_slices(
+    centerline: PyCenterline,
+    points: Sequence[Coords3],
+    branch_id: int,
+    step_size: float,
+) -> List[PyContour]:
+    """Uniform arc-length anchors -> Voronoi point assignment -> plane
+    projection.  Parity: projecting.rs:13-117 (Voronoi assignment is a single
+    batched argmin over anchors)."""
+    return _walk_slices([(centerline, points, branch_id, step_size)])[0]
+
+
+def _local_basis(pts: np.ndarray, centroid: np.ndarray):
+    """Parity: resampling.rs:188-212."""
+    rel = pts - centroid
+    norms = np.linalg.norm(rel, axis=1)
+    candidates = np.nonzero(norms > 1e-10)[0]
+    if len(candidates) == 0:
+        return None
+    axis_u = rel[candidates[0]] / norms[candidates[0]]
+    cross = np.cross(axis_u, rel)
+    cross_norms = np.linalg.norm(cross, axis=1)
+    second = np.nonzero(cross_norms > 1e-10)[0]
+    if len(second) == 0:
+        return None
+    normal = cross[second[0]] / cross_norms[second[0]]
+    axis_v = np.cross(normal, axis_u)
+    axis_v /= np.linalg.norm(axis_v)
+    return axis_u, axis_v
+
+
+def _has_full_angular_coverage(contour: PyContour) -> bool:
+    """Parity: resampling.rs:38-65."""
+    pts = contour.xyz_view()
+    if len(pts) < 4 or contour.centroid is None:
+        return False
+    centroid = np.asarray(contour.centroid)
+    basis = _local_basis(pts, centroid)
+    if basis is None:
+        return False
+    axis_u, axis_v = basis
+    rel = pts - centroid
+    pu = rel @ axis_u
+    pv = rel @ axis_v
+    quadrants = {(bool(u), bool(v)) for u, v in zip(pu >= 0.0, pv >= 0.0)}
+    return len(quadrants) == 4
+
+
+def _resample_spline(contour: PyContour, n_points: int) -> Optional[PyContour]:
+    """Closed Catmull-Rom refit to n evenly spaced points (vectorised).
+    Parity: resampling.rs:68-185."""
+    if n_points < 2 or contour.n_points < 3 or contour.centroid is None:
+        return None
+    pts = contour.xyz_view()
+    centroid = np.asarray(contour.centroid)
+    basis = _local_basis(pts, centroid)
+    if basis is None:
+        return None
+    axis_u, axis_v = basis
+    rel = pts - centroid
+    angles = np.arctan2(rel @ axis_v, rel @ axis_u)
+    ctrl = pts[np.argsort(angles, kind="stable")]
+
+    SAMPLES_PER_SEG = 32
+    m = len(ctrl)
+    prev = np.roll(ctrl, 1, axis=0)
+    curr = ctrl
+    nxt = np.roll(ctrl, -1, axis=0)
+    after = np.roll(ctrl, -2, axis=0)
+    t = (np.arange(SAMPLES_PER_SEG) / SAMPLES_PER_SEG)[None, :, None]
+    t2 = t * t
+    t3 = t2 * t
+    curve = 0.5 * (
+        2.0 * curr[:, None, :]
+        + (nxt - prev)[:, None, :] * t
+        + (2.0 * prev - 5.0 * curr + 4.0 * nxt - after)[:, None, :] * t2
+        + (-prev + 3.0 * curr - 3.0 * nxt + after)[:, None, :] * t3
+    ).reshape(m * SAMPLES_PER_SEG, 3)
+    curve = np.concatenate([curve, curve[:1]], axis=0)
+
+    seglen = np.linalg.norm(curve[1:] - curve[:-1], axis=1)
+    arc = np.concatenate([[0.0], np.cumsum(seglen)])
+    total = float(arc[-1])
+    if total < 1e-10:
+        return None
+
+    step = total / n_points
+    targets = np.arange(n_points) * step
+    # Rust partition_point(|s| s < target) = first idx with arc >= target
+    seg = np.clip(np.searchsorted(arc, targets, side="left") - 1, 0, len(curve) - 2)
+    s0 = arc[seg]
+    s1 = arc[seg + 1]
+    denom = s1 - s0
+    frac = np.where(np.abs(denom) < 1e-12, 0.0, (targets - s0) / np.where(denom == 0, 1, denom))
+    resampled = curve[seg] * (1.0 - frac)[:, None] + curve[seg + 1] * frac[:, None]
+
+    return PyContour.from_arrays(
+        contour.id,
+        contour.original_frame,
+        resampled,
+        contour.centroid,
+        np.full(n_points, contour.id, dtype=np.int64),
+        np.arange(n_points, dtype=np.int64),
+        None,
+        None,
+        None,
+        contour.kind,
+    )
+
+
+@trace("ccta.resample")
+def create_uniform_contours(contours: List[PyContour], n_points: int) -> List[PyContour]:
+    """Parity: resampling.rs:11-35."""
+    non_empty = [c for c in contours if c.n_points > 0]
+    coverage = [_has_full_angular_coverage(c) for c in non_empty]
+    start = next((i for i, ok in enumerate(coverage) if ok), 0)
+    end = next((i + 1 for i in range(len(coverage) - 1, -1, -1) if coverage[i]), len(non_empty))
+    out = []
+    for c in non_empty[start:end]:
+        resampled = _resample_spline(c, n_points)
+        if resampled is not None:
+            out.append(resampled)
+    return out
+
+
+def discretize_vessel(
+    centerline: PyCenterline,
+    points: Sequence[Coords3],
+    branch_id: int = 0,
+    step_size: float = 0.5,
+    n_points: int = 20,
+) -> List[PyContour]:
+    """Walk + Voronoi + coverage filter + Catmull-Rom resample.
+    Parity: discretize_vessel_rs (ccta_py.rs:669-686)."""
+    slices = walk_centerline_slices(centerline, points, branch_id, step_size)
+    return create_uniform_contours(slices, n_points)
+
+
+def discretize_vessel_tree(
+    ao_cl: PyCenterline,
+    rca_cl: PyCenterline,
+    lca_cl: PyCenterline,
+    points_ao,
+    points_rca_main,
+    points_lca_main,
+    side_branches_rca,
+    side_branches_lca,
+    branch_id_rca: int = 0,
+    branch_id_lca: int = 0,
+    step_size: float = 1.0,
+    n_points: int = 100,
+    calculate_ref_pts: bool = True,
+):
+    """Smooth the three centerlines (sigma = 2.5), discretize mains + side
+    branches, compute reference triplets.
+    Parity: vessel_tree.rs:18-99 + ccta_py.rs discretize_vessel_tree.  The
+    walks of the three mains and of every side branch take their Voronoi
+    assignments from one batched pick (:func:`_walk_pick`), then each is
+    projected and resampled as :func:`discretize_vessel` would."""
+    from ..models.centerline import smooth_centerline
+    from ..models.vessel_tree import PyDiscretizedVesselTree
+
+    ao = smooth_centerline(ao_cl, 2.5)
+    rca = smooth_centerline(rca_cl, 2.5)
+    lca = smooth_centerline(lca_cl, 2.5)
+
+    walks = [(ao, points_ao, 0), (rca, points_rca_main, branch_id_rca),
+             (lca, points_lca_main, branch_id_lca)]
+    walks += [(rca, pts, i + 1) for i, pts in enumerate(side_branches_rca)]
+    walks += [(lca, pts, i + 1) for i, pts in enumerate(side_branches_lca)]
+    slices = _walk_slices([(cl, pts, bid, step_size) for cl, pts, bid in walks])
+    contours = [create_uniform_contours(s, n_points) for s in slices]
+    n_rca = len(side_branches_rca)
+
+    tree = PyDiscretizedVesselTree(
+        discretized_aorta=contours[0],
+        discretized_rca_main=contours[1],
+        discretized_lca_main=contours[2],
+        spacing=step_size,
+        rca_branches=contours[3:3 + n_rca],
+        lca_branches=contours[3 + n_rca:],
+    )
+    if calculate_ref_pts:
+        tree = tree.calculate_ref_pts()
+    return tree

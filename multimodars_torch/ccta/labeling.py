@@ -211,6 +211,30 @@ def label_geometry(
     return results, (cl_rca, cl_lca, cl_aorta)
 
 
+def largest_component_idx(mesh: Mesh, idx: np.ndarray) -> np.ndarray:
+    """Indices of the largest mesh-connected component within ``idx``: the
+    one-set case of :func:`largest_component_split`, which prints as the
+    per-region filter does.  Parity: labeling.py:297-354."""
+    idx = np.asarray(idx, dtype=np.int64)
+    if len(idx) < 2:
+        return idx
+    return largest_component_split(mesh, [idx])[0]
+
+
+def _keep_largest_connected_component(mesh: Mesh, points):
+    """Tuple-list wrapper over :func:`largest_component_idx` (kept for the
+    reference-mirroring test surface)."""
+    if len(points) < 2:
+        return points
+    lookup = mesh_lookup(mesh)
+    idx = lookup.find_present(points)
+    if len(idx) == 0:
+        return points
+    keep = largest_component_idx(mesh, np.unique(idx))
+    vl = mesh.vertices[keep].tolist()
+    return [tuple(row) for row in vl]
+
+
 def largest_component_split(mesh: Mesh, idx_list) -> list:
     """Largest mesh-connected component of EACH disjoint index set, from a
     single edge-extraction + connected-components pass.

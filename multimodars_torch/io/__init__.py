@@ -1,10 +1,11 @@
-"""File I/O: CSV contour readers, the geometry build funnel and the OBJ/MTL
-writers of the single-pullback path."""
+"""File I/O: CSV contour readers, the VTP centerline parser, the geometry
+build funnel and the OBJ/MTL writers."""
 
 from .csv_io import (
     read_contour_data,
     read_reference_point,
     read_records,
+    read_centerline_vtp,
     InputData,
 )
 from .build import build_geometry_from_inputdata, check_geometry_integrity
@@ -13,6 +14,7 @@ __all__ = [
     "read_contour_data",
     "read_reference_point",
     "read_records",
+    "read_centerline_vtp",
     "InputData",
     "build_geometry_from_inputdata",
     "check_geometry_integrity",

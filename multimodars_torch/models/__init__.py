@@ -10,6 +10,7 @@ from .record import PyRecord, PyInputData
 from .frame import PyFrame
 from .geometry import PyGeometry, PyGeometryPair
 from .centerline import PyCenterline, PyCenterlinePoint
+from .vessel_tree import PyDiscretizedVesselTree
 from .tensor import TensorGeometry, geometry_to_tensor, tensor_to_geometry
 
 __all__ = [
@@ -23,6 +24,7 @@ __all__ = [
     "PyGeometryPair",
     "PyCenterline",
     "PyCenterlinePoint",
+    "PyDiscretizedVesselTree",
     "TensorGeometry",
     "geometry_to_tensor",
     "tensor_to_geometry",

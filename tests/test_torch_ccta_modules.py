@@ -313,3 +313,44 @@ def test_geometry_to_trimesh_matches_jax():
     np.testing.assert_array_equal(got.faces, want.faces)
     np.testing.assert_array_equal(got.vertices, want.vertices)
     assert isinstance(got, tmesh.Mesh)
+
+
+@pytest.mark.parametrize("picked", [(0, 1, 3, 8), (0, 1, 2), (0,), (2, 6), (8, 0, 4, 7, 5)])
+def test_keep_largest_connected_component_matches_jax(picked):
+    """tests/test_ccta.py's component filter cases (an isolated vertex
+    dropped, a connected set kept, a single point passed through) and two
+    more: the kept points and the printed line equal."""
+    from multimodars_torch.ccta.labeling import _keep_largest_connected_component as t_keep
+    from multimodars_tpu.ccta.labeling import _keep_largest_connected_component as j_keep
+
+    out = []
+    for keep, mod in ((t_keep, tmesh), (j_keep, jmesh)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            kept = keep(mod.Mesh(GRID_VERTS, GRID_FACES), [GRID[i] for i in picked])
+        out.append((kept, buf.getvalue()))
+    assert out[0] == out[1]
+    if picked == (0, 1, 3, 8):
+        assert sorted(out[1][0]) == sorted(GRID[i] for i in (0, 1, 3))
+
+
+def test_largest_component_idx_matches_jax(case):
+    """The index form on the scale-1 case: each labelled region, and the
+    RCA region with the LCA's vertices mixed in (two components)."""
+    from multimodars_torch.ccta.labeling import largest_component_idx as t_largest
+    from multimodars_tpu.ccta import regions as jregions
+    from multimodars_tpu.ccta.labeling import largest_component_idx as j_largest
+
+    results = case["results"]
+    sets = [jregions.get_idx(results, k) for k in ("rca_points", "lca_points", "aorta_points")]
+    sets.append(np.concatenate([sets[0], sets[1][:40]]))
+    t_mesh = tmesh.Mesh(case["jax"][0].vertices, case["jax"][0].faces)
+    for idx in sets:
+        out = []
+        for largest, mesh in ((t_largest, t_mesh), (j_largest, case["jax"][0])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out.append((largest(mesh, idx), buf.getvalue()))
+        np.testing.assert_array_equal(out[0][0], out[1][0])
+        assert out[0][1] == out[1][1]
+    assert "island component(s) dropped" in out[1][1]

@@ -746,3 +746,55 @@ def test_ccta_slice_on_cuda_matches_cpu(cuda):
         assert np.array_equal(got[2]["mesh"].vertices, want[2]["mesh"].vertices)
     assert rct.launches > launches[0] and nst.launches > launches[1]
     assert msw.launches == launches[2] + 2  # one launch for the three sweeps of a run
+
+
+def _tree_parts(tree):
+    """Every contour's coordinates, ids and point indices of a discretized
+    tree, vessel by vessel and branch by branch, and its reference points."""
+    stacks = [tree.discretized_aorta, tree.discretized_rca_main, tree.discretized_lca_main,
+              *tree.rca_branches, *tree.lca_branches]
+    contours = [[(c.id, c.point_indices.tolist(), c.xyz_view().copy()) for c in s]
+                for s in stacks]
+    refs = (tree.ao_rca, tree.ao_lca, tree.rca_references, tree.lca_references)
+    return contours, refs
+
+
+def test_vessel_tree_on_cuda_matches_cpu(cuda):
+    """label -> prepare_centerlines -> discretize_vessel_tree on the
+    6,406-vertex case, with and without the B-spline refit: CUDA f32 and f64
+    give the CPU f64 contours and reference points exactly, the tree's
+    walks in one nearest launch."""
+    import ccta_case
+
+    def prepared(device, dtype):
+        with mt.config.use(device=device, dtype=dtype):
+            with contextlib.redirect_stdout(io.StringIO()):
+                mesh, cl_ao, cl_rca, cl_lca, geom = ccta_case.build_case(mt, 1)
+                results, (rca_cl, lca_cl, ao_cl) = mt.label(
+                    mesh, cl_ao, cl_rca, cl_lca, aligned_frames=geom.frames,
+                    anomalous_rca=True, control_plot=False)
+                rca2, lca2, results = mt.prepare_centerlines(rca_cl, lca_cl, results)
+        return ao_cl, rca2, lca2, results
+
+    want_prep = prepared("cpu", torch.float64)
+    with mt.config.use(device="cpu", dtype=torch.float64):
+        want = {b: _tree_parts(mt.discretize_vessel_tree(*want_prep, b_spline=b))
+                for b in (False, True)}
+    contours, refs = want[False]
+    assert contours[0] and contours[1] and contours[2] and refs[2] and refs[3]
+    for dtype in (torch.float64, torch.float32):
+        prep = prepared(cuda, dtype)
+        for key in ("rca_points_main", "lca_points_main", "aorta_points"):
+            assert prep[3][key] == want_prep[3][key], key
+        for b_spline in (False, True):
+            launches = nst.launches
+            with mt.config.use(device=cuda, dtype=dtype):
+                got = _tree_parts(mt.discretize_vessel_tree(*prep, b_spline=b_spline))
+            assert nst.launches == launches + 1  # three walks, one launch
+            g_contours, g_refs = got
+            w_contours, w_refs = want[b_spline]
+            assert [len(s) for s in g_contours] == [len(s) for s in w_contours]
+            for gs, ws in zip(g_contours, w_contours):
+                for (gi, gp, gx), (wi, wp, wx) in zip(gs, ws):
+                    assert gi == wi and gp == wp and np.array_equal(gx, wx)
+            assert g_refs == w_refs

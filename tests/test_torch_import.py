@@ -25,6 +25,9 @@ from multimodars_torch.ops import _cuda_build, hausdorff_batch
 from multimodars_torch import ccta
 from multimodars_torch.ops import morph_sweep, nearest, radius_count
 from multimodars_torch.parallel import cohort
+from multimodars_torch.ccta import discretization_map
+from multimodars_torch.models import vessel_tree
+from multimodars_torch.utils import debug_io
 for m in pkgutil.walk_packages(multimodars_torch.__path__, "multimodars_torch."):
     __import__(m.name)
 bad = sorted(
@@ -74,6 +77,9 @@ _ENTRY_POINTS = (
     "smooth_mesh_labels", "find_centerline_bounded_points_simple",
     "find_proximal_distal_scaling", "build_adjacency_map",
     "read_geometrical", "write_geometries", "geometry_to_trimesh",
+    # the vessel-tree discretization
+    "discretize_vessel", "prepare_centerlines", "discretize_vessel_tree",
+    "find_sharp_angles",
 )
 
 
@@ -107,23 +113,35 @@ def test_entry_point_exported_with_jax_signature(name):
     assert _parameters(got) == _parameters(want)
 
 
+_DISCRETIZATION_EXPORTS = {
+    "PyDiscretizedVesselTree", "discretize_vessel", "prepare_centerlines",
+    "discretize_vessel_tree", "find_sharp_angles",
+}
+
+
 def test_every_jax_export_but_discretization_is_exported():
-    """The port exports every public name of the JAX package except the
-    discretization slice, which is not ported yet."""
+    """The port exports every public name of the JAX package outside the
+    discretization slice."""
     import multimodars_torch as mt
     import multimodars_tpu as mj
 
-    missing = sorted(set(mj.__all__) - set(mt.__all__))
-    assert missing == sorted([
-        "PyDiscretizedVesselTree", "discretize_vessel", "prepare_centerlines",
-        "discretize_vessel_tree", "find_sharp_angles",
-    ])
+    assert sorted(set(mj.__all__) - _DISCRETIZATION_EXPORTS - set(mt.__all__)) == []
+
+
+def test_every_jax_export_is_exported():
+    """The port exports every public name of the JAX package, the
+    discretization slice's included."""
+    import multimodars_torch as mt
+    import multimodars_tpu as mj
+
+    assert _DISCRETIZATION_EXPORTS <= set(mj.__all__)
+    assert sorted(set(mj.__all__) - set(mt.__all__)) == []
 
 
 _MODEL_CLASSES = (
     "PyContourPoint", "PyContour", "PyFrame", "PyGeometry", "PyGeometryPair",
     "PyCenterline", "PyCenterlinePoint", "PyInputData", "PyRecord",
-    "PyContourType",
+    "PyContourType", "PyDiscretizedVesselTree",
 )
 
 
