@@ -5,14 +5,15 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 It builds the hand-written kernels from ``multimodars_torch/csrc`` (the
 rotation sweep's cost table, the centerline refine's Hausdorff table, and
-the CCTA toolkit's radius count, nearest pick and morph sweep; one ``nvcc``
-each, started together), holds each against its plain PyTorch version at
-the shapes the main paths give it, drives the port's single-pullback path
+the CCTA toolkit's radius count, nearest pick, morph sweep and ray-triangle
+hits; one ``nvcc`` each, started together), holds each against its plain
+PyTorch version at the shapes the main paths give it, drives the port's
+single-pullback path
 (``from_array_single`` on a 280-frame, 500-point pullback at step 0.01 deg /
 range 6 deg, the reference's headline protocol) and its four-phase path
 (``from_array_full`` on four such pullbacks at the canonical step 0.5 deg /
-range 90 deg), its centerline registration, its cohort entry and its CCTA
-mesh fusion, and checks what comes out.
+range 90 deg), its centerline registration, its cohort entry, its CCTA
+mesh fusion and its multi-device execution, and checks what comes out.
 Phases:
 
 1. environment: card name and power limit, torch/CUDA versions, kernel builds
@@ -52,7 +53,7 @@ Phases:
 8. CCTA mesh fusion on the card: ``label`` -> ``scale`` -> ``stitch`` with
    the CCTA fusion benchmark's arguments on its synthetic anomalous-RCA
    case at scale 3 (57,606 vertices, 115,200 faces), in f32 (launches of
-   the radius count, nearest pick and morph sweep kernels counted, the
+   the radius count, nearest pick, morph sweep and ray kernels counted, the
    scale stage's three sweeps in one batched call and launch, the
    certification counts of ``ccta.kernels.stats``), in f64 on the card and
    in f64 on the CPU: the same region index sets and scalings and the same
@@ -66,11 +67,29 @@ Phases:
    for up to 8 walks), region sizes, anchors per walk, contour counts and
    reference triplets printed, f32 card = f64 card = f64 CPU exactly, the
    recorded calls against plain, wall clock and spans
+9. multi-device execution on meshes naming the card 1, 2 and 4 times (one
+   CUDA stream a shard; every card too where there are several):
+   ``from_array_cohort(devices=...)`` on phase 7's cohort (the same angles
+   and coordinates as ``devices=None``, sweep launches per shard,
+   pullbacks/s per mesh); ``sharded_multires_search`` on OCT-280's 279
+   within pairs at step 0.01 deg / range 6 deg, the ladder and the brute
+   force (K 1202), f32 and f64 (the same bits on every mesh and in both
+   dtypes, equal to the repaired unsharded search, flags and repairs), and
+   the brute-force table's ms; ``sharded_count_within_radius`` at phase
+   8's island count shapes (equal to the unsharded count); phase 8's
+   ``label`` -> ``scale`` -> ``stitch`` under ``shard_rows_over`` with the
+   ray kernel's route forced at every size (``_RAY_NATIVE_THRESHOLD``
+   0): the same regions, scalings and stitched mesh (0.0 mm) as phase 8's
+   unsharded f32 run and its f64 CPU run (the native grid DDA), count,
+   pick and ray launches per shard; the ray kernel against plain on the
+   run's rays (bit for bit) and against the native grid DDA
+   (disagreements counted), with ms, bound and share, and the occlusion
+   pass's two routes on those rays timed whole
 
 Every phase prints its lines; any failure exits non-zero.  The line before
 the last is the kernel summary JSON, the last line is
 ``{"ok": true, "device": {...}}``.  ``--only kernel`` stops after phase 2
-and holds the refine kernel and the three CCTA kernels against plain on
+and holds the refine kernel and the four CCTA kernels against plain on
 inputs of their main-path shapes from a seed;
 ``--profile`` adds a torch.profiler breakdown of one steady run of each
 main path.
@@ -1194,17 +1213,24 @@ def phase_centerline(torch, hb, mt, pair_ab, profile=False):
 COHORT_SEEDS = tuple(range(7, 23))
 
 
-def phase_cohort(torch, sweep, rs, mt, profile=False):
-    import numpy as np
-
+def cohort_datas(mt):
+    """The cohort's 16 OCT-280 pullbacks, seeds COHORT_SEEDS."""
     from bench import synthetic_oct_pullback
-    from multimodars_torch.ops import argmin_repair
-    from multimodars_torch.utils import trace
 
     datas = []
     for seed in COHORT_SEEDS:
         lumen, ref = synthetic_oct_pullback(OCT_FRAMES, OCT_POINTS, seed)
         datas.append(mt.numpy_to_inputdata(lumen, ref, True, label=f"case{seed}"))
+    return datas
+
+
+def phase_cohort(torch, sweep, rs, mt, profile=False):
+    import numpy as np
+
+    from multimodars_torch.ops import argmin_repair
+    from multimodars_torch.utils import trace
+
+    datas = cohort_datas(mt)
     kw = dict(step_rotation_deg=FULL_STEP, range_rotation_deg=FULL_RANGE,
               sample_size=500, smooth=True)
 
@@ -1458,22 +1484,23 @@ def recorded_ccta_calls():
 
 @contextlib.contextmanager
 def recorded_rays():
-    """Record (rays, faces) of every call of the occlusion pass's ray test
-    (``io.native.ray_occlusion_native``, which the pass calls first)."""
-    from multimodars_torch.io import native
+    """Record (origins, directions, faces [F, 3, 3]) of every call of the
+    occlusion pass's ray test (``ccta.kernels.ray_occlusion``, whichever
+    route it takes)."""
+    from multimodars_torch.ccta import kernels as ck
 
     seen = []
-    fn = native.ray_occlusion_native
+    fn = ck.ray_occlusion
 
-    def spy(origins, directions, tris, *args, **kwargs):
-        seen.append((len(origins), len(tris)))
-        return fn(origins, directions, tris, *args, **kwargs)
+    def spy(origins, directions, tri):
+        seen.append((origins.copy(), directions.copy(), tri.copy()))
+        return fn(origins, directions, tri)
 
-    native.ray_occlusion_native = spy
+    ck.ray_occlusion = spy
     try:
         yield seen
     finally:
-        native.ray_occlusion_native = fn
+        ck.ray_occlusion = fn
 
 
 def ccta_run(torch, mt, case):
@@ -1909,7 +1936,7 @@ def phase_ccta(torch, mt, profile=False):
     import numpy as np
 
     from multimodars_torch.ccta import kernels as ck
-    from multimodars_torch.ops import morph_sweep, nearest, radius_count
+    from multimodars_torch.ops import morph_sweep, nearest, radius_count, ray_triangle
     from multimodars_torch.utils import trace
 
     t0 = time.perf_counter()
@@ -1920,7 +1947,8 @@ def phase_ccta(torch, mt, profile=False):
                 f"{len(case[4].frames)} IV frames x {len(case[4].frames[0].lumen.points)} points")
     check((len(mesh.vertices), len(mesh.faces)) == (CCTA_VERTICES, CCTA_FACES),
           "the case is not the 57,606-vertex benchmark mesh")
-    mods = {"radius_count": radius_count, "nearest": nearest, "morph_sweep": morph_sweep}
+    mods = {"radius_count": radius_count, "nearest": nearest, "morph_sweep": morph_sweep,
+            "ray_triangle": ray_triangle}
 
     # the counted run: every launch count set to 0 just before it
     for mod in mods.values():
@@ -1947,8 +1975,9 @@ def phase_ccta(torch, mt, profile=False):
                    for name, args, _ in calls if CCTA_WRAPPERS[name] == "morph_sweep"]
     check(len(sweep_calls) == 1 and len(sweep_calls[0]) == 3,
           f"the scale stage's sweeps went in {len(sweep_calls)} call(s), not one call of three")
-    say("ccta", "occlusion ray tests (rays x faces = pairs; ROADMAP B6's kernel is due above "
-                "1e9): " + ", ".join(f"{r} x {f} = {r * f:.4e}" for r, f in rays))
+    say("ccta", "occlusion ray tests (rays x faces = pairs; the ray kernel's route on the "
+                f"card above {ck._RAY_NATIVE_THRESHOLD['cuda']:.2e}): "
+                + ", ".join(f"{len(o)} x {len(t)} = {len(o) * len(t):.4e}" for o, _, t in rays))
     got32 = {k: (v["rows"], v["flagged"], v["changed"]) for k, v in stats32.items()}
     check(got32 == CCTA_CERTIFICATION_F32,
           f"f32 certification {got32}, expected {CCTA_CERTIFICATION_F32}")
@@ -2026,8 +2055,10 @@ def phase_ccta(torch, mt, profile=False):
     if profile:
         by_name = profile_main_path(torch, run, "ccta_profile.json")
         for kernel in mods:
-            us = sum(v[0] for k, v in by_name.items() if f"{kernel}_kernel" in k)
-            count = sum(v[1] for k, v in by_name.items() if f"{kernel}_kernel" in k)
+            names = (("ray_partials_kernel", "ray_finish_kernel") if kernel == "ray_triangle"
+                     else (f"{kernel}_kernel",))
+            us = sum(v[0] for k, v in by_name.items() if any(n in k for n in names))
+            count = sum(v[1] for k, v in by_name.items() if any(n in k for n in names))
             say("profile", f"{kernel}: {count} launches in the profiled run, device "
                            f"{us / 1e3:.4f} ms, {us / 1e3 / max(count, 1):.4f} ms a launch")
         for key, (us, count) in sorted(by_name.items()):
@@ -2042,9 +2073,323 @@ def phase_ccta(torch, mt, profile=False):
         if row["bound_ms"] > kres[kernel]["bound_ms"]:
             kres[kernel] = row
         kres[kernel]["max_abs_err"] = err
-    return launches, kres
+    return launches, kres, dict(case=case, f32=run32, cpu=run_cpu, calls=calls)
 
 
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+# phase 9's meshes: MESH_DEVICE named 1, 2 and 4 times (one stream a shard),
+# plus every card where the machine has more than one
+MESH_DEVICE = "cuda:0"
+MESH_SIZES = (1, 2, 4)
+# the occlusion pass's FP64 operations per (ray, face) pair before its first
+# early-out: h = d x e2 (6 mul, 3 sub), a = e1 . h (3 mul, 2 add), |a| < eps (2)
+RAY_OPS_PER_PAIR = 16
+RAY_REPLACES = "multimodars_tpu/ccta/kernels.py:1614"
+# the island count of phase 8: [18864] x [21587] within 2 mm
+ISLAND_SHAPE, ISLAND_RADIUS = (18864, 21587), 2.0
+
+
+def meshes(torch):
+    """(label, device list) of every mesh phase 9 runs."""
+    out = [(f"{n} x {MESH_DEVICE}", [MESH_DEVICE] * n) for n in MESH_SIZES]
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count > 1:
+        out.append((f"{count} cards", [f"cuda:{i}" for i in range(count)]))
+    return out
+
+
+def ray_bound(torch, n_rays, n_faces):
+    """(bound ms, "operations" or "bytes") of one ray-kernel call: its FP64
+    operations before the first early-out over the card's FP64 lanes, or
+    its bytes (rays and faces read once, three 8-byte words a ray written)
+    over the memory rate."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_s = RAY_OPS_PER_PAIR * n_rays * n_faces / (sms * FP_LANES_PER_SM[8] * MAX_SM_CLOCK_HZ)
+    bytes_s = (n_rays * 6 * 8 + n_faces * 9 * 8 + n_rays * 3 * 8) / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def host_ms(fn, reps):
+    """Milliseconds of one call of ``fn`` by the host clock: the median of
+    ``reps`` calls after a warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[reps // 2]
+
+
+def check_ray_call(torch, origins, directions, tris, label, native_check=True):
+    """The ray kernel against its plain version on the card on these rays:
+    the whole output equal bit for bit (hits, closest face, t_min), and
+    (hits, closest) against the native grid DDA, whose disagreements are
+    counted; the occlusion pass's two routes on these rays are timed whole
+    (``ccta.kernels.ray_occlusion``: the kernel's upload, launch and pull,
+    and the native DDA).  Returns the kernel's row of the kernels line."""
+    import numpy as np
+
+    from multimodars_torch.ccta import kernels as ck
+    from multimodars_torch.io import native
+    from multimodars_torch.ops import ray_triangle as rt
+
+    dev = torch.device(MESH_DEVICE)
+    args = [torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64, device=dev)
+            for x in (origins, directions, tris)]
+    saved = rt.launches
+    got = rt.ray_hits(*args)
+    want = rt.ray_hits_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{label}: the ray kernel differs from plain")
+    g_hits, g_closest, g_t = (v.cpu().numpy() for v in rt.views(got))
+    w_t = rt.views(want)[2].cpu().numpy()
+    fin = np.isfinite(w_t)
+    err = float(np.abs(g_t[fin] - w_t[fin]).max()) if fin.any() else 0.0
+    ms = cuda_ms(torch, lambda: rt.ray_hits(*args), 5)
+    routes = {}
+    if native_check:
+        saved_threshold = ck._RAY_NATIVE_THRESHOLD
+        try:
+            for name, threshold in (("kernel", 0), ("native DDA", len(origins) * len(tris))):
+                ck._RAY_NATIVE_THRESHOLD = {"cuda": threshold}
+                routes[name] = host_ms(lambda: ck.ray_occlusion(origins, directions, tris), 5)
+        finally:
+            ck._RAY_NATIVE_THRESHOLD = saved_threshold
+    rt.launches = saved  # launches made to compare with plain do not count
+    plain_ms = cuda_ms(torch, lambda: rt.ray_hits_plain(*args), 1)
+    bound, by = ray_bound(torch, len(origins), len(tris))
+    line = (f"ray_triangle f64 [{len(origins)}] x [{len(tris)}]: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}), {100.0 * bound / ms:.1f}% of "
+            f"bound, {len(origins) * len(tris):.3e} pairs, {int((g_hits > 0).sum())} rays hit, "
+            f"t_min and hits bit-equal to plain")
+    if native_check:
+        dda = quiet(native.ray_occlusion_native, origins, directions, tris.reshape(-1, 9))
+        check(dda is not None, "the native library did not load: no grid DDA to compare")
+        differ = int(((g_hits != dda[0]) | (g_closest != dda[1])).sum())
+        line += (f"; (n_hits, closest) differ from the native grid DDA in {differ} rays; "
+                 f"ray_occlusion by the host clock, median of 5: kernel route "
+                 f"{routes['kernel']:.4f} ms, native DDA {routes['native DDA']:.4f} ms")
+    say("ccta-tables", line + f" (card after: {card_state()})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+
+def synthetic_ray_call(torch):
+    """1000 seeded rays against 37,905 seeded faces (phase 8's shape),
+    through the middle of the faces' cloud so that rays hit."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    v0 = rng.normal(0.0, 10.0, (37905, 3))
+    tris = np.stack([v0, v0 + rng.normal(0.0, 1.0, (37905, 3)),
+                     v0 + rng.normal(0.0, 1.0, (37905, 3))], 1)
+    origins = rng.normal(0.0, 2.0, (1000, 3))
+    directions = rng.normal(0.0, 1.0, (1000, 3))
+    return check_ray_call(torch, origins, directions, tris, "seeded", native_check=False)
+
+
+@contextlib.contextmanager
+def launches_by_shard():
+    """Count each kernel's launches by the shard (``utils.device``) they
+    were made under, None outside any shard."""
+    from multimodars_torch.ops import nearest, radius_count, ray_triangle, sweep
+    from multimodars_torch.utils import device
+
+    counts = {}
+    wrapped = [(sweep, "cost_table", "sweep_cost"), (radius_count, "radius_count_batch",
+               "radius_count"), (nearest, "nearest_batch", "nearest"),
+               (ray_triangle, "ray_hits", "ray_triangle")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
+    for mod, name, kernel in wrapped:
+        def spy(*args, _fn=getattr(mod, name), _mod=mod, _kernel=kernel, **kwargs):
+            before = _mod.launches
+            out = _fn(*args, **kwargs)
+            shard = device.current_shard()
+            key = (_kernel, None if shard is None else shard.index)
+            counts[key] = counts.get(key, 0) + _mod.launches - before
+            return out
+        setattr(mod, name, spy)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def per_shard(counts, kernel, n):
+    return [counts.get((kernel, k), 0) for k in range(n)]
+
+
+def phase_mesh(torch, mt, ccta_state):
+    """Multi-device execution on meshes of MESH_DEVICE: the sharded cohort,
+    the angle-sharded search, the row-sharded count and the CCTA fusion
+    row-sharded with the ray kernel's route forced, each against its
+    unsharded run.  Returns (ray kernel launches of the counted CCTA runs,
+    the ray kernel's row)."""
+    import numpy as np
+
+    from multimodars_torch import parallel
+    from multimodars_torch.ccta import kernels as ck
+    from multimodars_torch.ops import argmin_repair, nearest, radius_count, ray_triangle, sweep
+
+    mesh_list = meshes(torch)
+
+    # 1. the cohort: from_array_cohort with devices= against devices=None
+    datas = cohort_datas(mt)
+    kw = dict(step_rotation_deg=FULL_STEP, range_rotation_deg=FULL_RANGE,
+              sample_size=500, smooth=True)
+
+    def cohort(devices):
+        out = quiet(mt.from_array_cohort, datas, devices=devices, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    def angles(out):
+        return np.concatenate([[l.rot_deg for l in logs] for _, logs, _ in out])
+
+    def coords(out):
+        return np.concatenate([lumen_coords(g) for g, _, _ in out])
+
+    ref = cohort(None)
+    for label, devs in mesh_list:
+        sweep.launches = 0
+        with launches_by_shard() as counts:
+            got = cohort(devs)
+        total = sweep.launches
+        same = np.array_equal(angles(got), angles(ref)) and np.array_equal(coords(got), coords(ref))
+        shards = per_shard(counts, "sweep_cost", len(devs))
+        for _ in range(2):
+            cohort(devs)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            cohort(devs)
+            times.append(time.perf_counter() - t0)
+        med = sorted(times)[2]
+        say("mesh", f"cohort 16 x OCT-280 f32 on {label}: same angles and coordinates as "
+                    f"devices=None {same}; sweep launches per shard {shards} "
+                    f"(of {total}); median of 5 after 2 warm-ups {med:.4f} s = "
+                    f"{len(datas) / med:.2f} pullbacks/s")
+        check(same, f"the cohort on {label} differs from devices=None")
+        check(all(n > 0 for n in shards), f"a shard of {label} launched no sweep")
+
+    # 2. the angle-sharded search on OCT-280's 279 within pairs
+    pts = oct_sample_sets()
+    test, ref_sets = np.ascontiguousarray(pts[1:]), np.ascontiguousarray(pts[:-1])
+    masks = np.ones(test.shape[:2], dtype=bool)
+    for brute in (False, True):
+        mode = "bruteforce K 1202" if brute else "ladder"
+        answers = {}
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            with mt.config.use(dtype=dtype):
+                want = parallel.cohort_relative_rotations(
+                    test, ref_sets, masks, masks, STEP_DEG, RANGE_DEG,
+                    parallel.cohort_mesh([MESH_DEVICE]), brute)
+                for label, devs in mesh_list:
+                    for k in argmin_repair.stats:
+                        argmin_repair.stats[k] = 0
+                    with launches_by_shard() as counts:
+                        t0 = time.perf_counter()
+                        got = parallel.sharded_multires_search(
+                            test, ref_sets, masks, masks, STEP_DEG, RANGE_DEG,
+                            parallel.angle_mesh(devs), brute)
+                        wall = time.perf_counter() - t0
+                    answers[(tag, label)] = got
+                    say("mesh", f"angle shard {mode} {tag} on {label}: {wall:.4f} s, sweep "
+                                f"launches per shard {per_shard(counts, 'sweep_cost', len(devs))}, "
+                                f"flagged {argmin_repair.stats['flagged']}, repaired "
+                                f"{argmin_repair.stats['repaired']} (changed "
+                                f"{argmin_repair.stats['changed']}); equal to the repaired "
+                                f"unsharded search {np.array_equal(got, want)}")
+                    check(np.array_equal(got, want),
+                          f"angle shard {mode} {tag} on {label} differs from the unsharded search")
+        first = answers[("f64", mesh_list[0][0])]
+        check(all(np.array_equal(a, first) for a in answers.values()),
+              f"angle shard {mode}: meshes or dtypes differ")
+    # the brute-force table of one shard, alone
+    dev = torch.device(MESH_DEVICE)
+    from multimodars_torch.ops import rotation_search as rs
+
+    ang, valid = rs.candidate_angles(torch.zeros(len(test), dtype=torch.float64, device=dev),
+                                     STEP_DEG, RANGE_DEG, RANGE_DEG)
+    args = (torch.as_tensor(test, dtype=torch.float32, device=dev),
+            torch.as_tensor(ref_sets, dtype=torch.float32, device=dev),
+            torch.as_tensor(masks, device=dev), torch.as_tensor(masks, device=dev),
+            ang.to(torch.float32), valid)
+    kw_t = dict(dense=False, outer_stride_test=1, outer_stride_ref=1)
+    saved = sweep.launches
+    ms = cuda_ms(torch, lambda: sweep.cost_table(*args, **kw_t), 3)
+    sweep.launches = saved
+    bound, by = sweep_bound(torch, args, kw_t)
+    say("mesh", f"angle shard brute-force table f32 masked [279, 520, 520] x K {ang.shape[1]}: "
+                f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+                f"{100.0 * bound / ms:.1f}% of bound (card after: {card_state()})")
+
+    # 3. the row-sharded count at phase 8's island count shapes
+    island = None
+    for name, args_c, kwargs in ccta_state["calls"]:
+        if name == "radius_count_batch" and not kwargs.get("flags"):
+            for a_off, n, b_off, m, lo, hi in args_c[2]:
+                if (n, m) == ISLAND_SHAPE:
+                    island = (args_c[0][a_off:a_off + n].double().cpu().numpy(),
+                              args_c[1][b_off:b_off + m].double().cpu().numpy(), lo, hi)
+    check(island is not None, f"phase 8 made no {ISLAND_SHAPE} count")
+    a, b, lo, hi = island
+    check(lo < ISLAND_RADIUS ** 2 < hi, f"the island count's band {lo}, {hi} is not at r = 2")
+    want = ck.count_within_radius(a, b, ISLAND_RADIUS)
+    for label, devs in mesh_list:
+        radius_count.launches = 0
+        with launches_by_shard() as counts:
+            got = parallel.sharded_count_within_radius(a, b, ISLAND_RADIUS,
+                                                       parallel.rows_mesh(devs))
+        same = np.array_equal(got, want)
+        say("mesh", f"row-sharded count [{len(a)}] x [{len(b)}] r = 2 on {label}: equal to "
+                    f"the unsharded count {same}, count launches per shard "
+                    f"{per_shard(counts, 'radius_count', len(devs))}")
+        check(same, f"the row-sharded count on {label} differs")
+
+    # 4. the CCTA fusion row-sharded, the ray kernel's route forced
+    saved_threshold = ck._RAY_NATIVE_THRESHOLD
+    ck._RAY_NATIVE_THRESHOLD = {"cuda": 0}
+    ray_launches = 0
+    try:
+        for label, devs in mesh_list:
+            for mod in (radius_count, nearest, ray_triangle):
+                mod.launches = 0
+            with launches_by_shard() as counts, recorded_rays() as rays, \
+                    parallel.shard_rows_over(parallel.rows_mesh(devs)):
+                t0 = time.perf_counter()
+                run = ccta_run(torch, mt, ccta_state["case"])
+                wall = time.perf_counter() - t0
+            ray_launches += ray_triangle.launches
+            for other, what in ((ccta_state["f32"], "phase 8's unsharded f32 run"),
+                                (ccta_state["cpu"], "phase 8's f64 CPU run (native DDA)")):
+                same_regions = all(
+                    x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+                    for x, y in ((run[0], other[0]), (run[1], other[1])))
+                d = (float(np.abs(run[3].vertices - other[3].vertices).max())
+                     if run[3].vertices.shape == other[3].vertices.shape else float("inf"))
+                same = (same_regions and run[2] == other[2] and d == 0.0
+                        and np.array_equal(run[3].faces, other[3].faces))
+                check(same, f"CCTA on {label} differs from {what} (max vertex diff {d})")
+            n = len(devs)
+            say("mesh", f"CCTA label -> scale -> stitch f32 on {label}, ray route forced: "
+                        f"{wall:.4f} s; same regions, scalings and stitched mesh (0.0 mm) as "
+                        f"phase 8's f32 and f64 CPU runs; launches per shard: count "
+                        f"{per_shard(counts, 'radius_count', n)}, pick "
+                        f"{per_shard(counts, 'nearest', n)}, ray "
+                        f"{per_shard(counts, 'ray_triangle', n)}; rays "
+                        f"{', '.join(f'{len(o)} x {len(t)}' for o, _, t in rays)}")
+            check(all(k > 0 for k in per_shard(counts, "ray_triangle", n)),
+                  f"a shard of {label} launched no ray kernel")
+    finally:
+        ck._RAY_NATIVE_THRESHOLD = saved_threshold
+    origins, directions, tri = rays[0]
+    row = check_ray_call(torch, origins, directions, tri, "phase 8's rays")
+    return ray_launches, row
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2068,15 +2413,15 @@ def main() -> int:
 
     import multimodars_torch as mt
     from multimodars_torch.ops import hausdorff_batch as hb
-    from multimodars_torch.ops import morph_sweep, nearest, radius_count
+    from multimodars_torch.ops import morph_sweep, nearest, radius_count, ray_triangle
     from multimodars_torch.ops import rotation_search as rs
     from multimodars_torch.ops import sweep
 
     # a failed check raises SmokeFailure out of main(): the traceback names
     # the phase and the process exits non-zero
-    phase_environment(torch, sweep, hb, (radius_count, nearest, morph_sweep))
+    phase_environment(torch, sweep, hb, (radius_count, nearest, morph_sweep, ray_triangle))
     kres = phase_kernel(torch, sweep, rs)
-    launches = hb_launches = None
+    launches = hb_launches = ray_launches = None
     if args.only == "kernel":
         res = [check_refine_table(torch, hb, dtype, *synthetic_refine_tables())
                for dtype in (torch.float32, torch.float64)]
@@ -2084,6 +2429,7 @@ def main() -> int:
                     plain_ms=res[0][2], bound_ms=res[0][3][0], bound_by=res[0][3][1])
         ccta_launches = {}
         cres = report_ccta_calls(torch, synthetic_ccta_calls(torch), ccta_launches)
+        rres = synthetic_ray_call(torch)
     else:
         launches, _ = phase_main_path(torch, sweep, mt, args.profile)
         phase_cross_device(torch, mt)
@@ -2099,7 +2445,10 @@ def main() -> int:
         cohort_launches, err = phase_cohort(torch, sweep, rs, mt, args.profile)
         launches += cohort_launches
         kres["max_abs_err"] = max(kres["max_abs_err"], err)
-        ccta_launches, cres = phase_ccta(torch, mt, args.profile)
+        ccta_launches, cres, ccta_state = phase_ccta(torch, mt, args.profile)
+        mesh_ray_launches, rres = phase_mesh(torch, mt, ccta_state)
+        # phase 8's counted run and phase 9's three counted runs
+        ray_launches = ccta_launches["ray_triangle"] + mesh_ray_launches
     for name in sorted(sys.modules):
         if name == "jax" or name.startswith(("jax.", "multimodars_tpu")):
             print(f"FAIL: {name} was imported", flush=True)
@@ -2143,7 +2492,20 @@ def main() -> int:
         # no single PyTorch call computes the counts or the sweep;
         # torch.cdist(a, b).pow(2).min(1) is the nearest pick's yardstick
         "library_ms": cres[name].get("library_ms"),
-    } for name in ("radius_count", "nearest", "morph_sweep")]}), flush=True)
+    } for name in ("radius_count", "nearest", "morph_sweep")] + [{
+        "name": "ray_triangle",
+        "route": "cuda",
+        "source": "multimodars_torch/csrc/ray_triangle.cu",
+        "replaces": RAY_REPLACES,
+        "launches": ray_launches,
+        "max_abs_err": rres["max_abs_err"],
+        "ms": rres["ms"],
+        "plain_ms": rres["plain_ms"],
+        "bound_ms": rres["bound_ms"],
+        "bound_by": rres["bound_by"],
+        # no single PyTorch call computes the hits
+        "library_ms": None,
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

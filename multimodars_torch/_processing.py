@@ -615,15 +615,12 @@ def from_array_cohort(
     verbose: bool = False,
     devices=None,
 ):
-    """Register N independent pullbacks with ONE batched rotation search on
-    ``config.device``.  Returns a list of (PyGeometry, logs, anomalous)
-    triples in input order.  ``devices`` is the JAX package's mesh
-    argument; the port runs on one device and takes only None."""
-    if devices is not None:
-        raise ValueError(
-            "multimodars_torch runs on one device (config.device); "
-            "pass devices=None"
-        )
+    """Register N independent pullbacks with ONE batched rotation search.
+    Returns a list of (PyGeometry, logs, anomalous) triples in input order.
+    ``devices``: None for one search on ``config.device``, else a list of
+    devices (``torch.device``s or strings such as ``"cuda:0"``; one card
+    may be named several times, one shard each) over which the pair batch
+    is split (``parallel.cohort``); the answer is the same bits."""
     return _entry.cohort_processing(
         [_to_inputdata(d) for d in input_data_list],
         labels=labels,
@@ -636,6 +633,7 @@ def from_array_cohort(
         bruteforce=bruteforce,
         sample_size=sample_size,
         verbose=verbose,
+        devices=devices,
     )
 
 

@@ -4,8 +4,8 @@ Parity: ``src/ccta/adjust_mesh/{label_coronary,scale_coronary}.rs`` and
 the pyfunctions in ``src/ccta/binding/ccta_py.rs`` of the reference, as the
 JAX package's ``ccta/kernels.py`` expresses them.
 
-Three pairwise primitives carry the device work, each a hand-written CUDA
-kernel on the card and its plain PyTorch version on the CPU
+Four primitives carry the device work, each a hand-written CUDA kernel on
+the card and its plain PyTorch version on the CPU
 (:mod:`multimodars_torch.ops`):
 
 - counts within a radius (:func:`count_within_radius`,
@@ -15,7 +15,15 @@ kernel on the card and its plain PyTorch version on the CPU
   every walk of a vessel tree in one launch, :func:`_walk_pick`) on
   ``ops.nearest``;
 - the morph sweep's cost tables (:func:`_sweep_launch`, every sweep of a
-  stage in one launch) on ``ops.morph_sweep``.
+  stage in one launch) on ``ops.morph_sweep``;
+- the occlusion pass's ray-triangle hits (:func:`ray_occlusion`, float64)
+  on ``ops.ray_triangle`` on the card above ``_RAY_NATIVE_THRESHOLD`` ray x
+  face pairs, the native grid DDA of ``io.native`` at or below it and on
+  the CPU.
+
+Under ``utils.device.shard_rows_over`` the counts, picks and ray hits split
+their query rows over the mesh (:func:`_per_row`); the morph sweep stays on
+``config.device``.
 
 Every pairwise evaluation takes its primitive whatever its size.  Both sets
 are centred at their float64 bounding-box midpoint and cast to
@@ -26,15 +34,15 @@ offsets within ``2 cmin 1e-4 + 1e-12`` of the minimum), so every answer
 equals the exact host answer.  ``stats`` counts, per primitive, the rows
 evaluated, flagged and re-decided, and the re-decisions that changed the
 device's answer.  Exact-identity set operations (the labeling bookkeeping)
-stay host-side on bit-pattern keys, as in the reference; the ray occlusion
-keeps the native grid-DDA of ``io.native``.  The discretization (the
-centerline walk's anchors, its plane projection and the Catmull-Rom
-resample) is host numpy written as the JAX package writes it, so its
-float64 contours equal the JAX package's bit for bit.
+stay host-side on bit-pattern keys, as in the reference.  The
+discretization (the centerline walk's anchors, its plane projection and
+the Catmull-Rom resample) is host numpy written as the JAX package writes
+it, so its float64 contours equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -48,7 +56,8 @@ from ..models.frame import PyFrame
 from ..ops import morph_sweep as _morph_sweep_op
 from ..ops import nearest as _nearest_op
 from ..ops import radius_count as _radius_count_op
-from ..utils.device import to_device_packed, to_host
+from ..ops import ray_triangle as _ray_op
+from ..utils.device import Mesh, active_rows_mesh, run_shards, to_device_packed, to_host
 from ..utils.trace import trace
 from .mesh import fix_faces_winding
 
@@ -112,6 +121,78 @@ def _radius_band(radius: float, maxc: float) -> Tuple[float, float, float]:
 # pairwise primitives
 # ---------------------------------------------------------------------------
 
+def _per_row(jobs, launch, split) -> List[tuple]:
+    """Each job's per-row device results, as host arrays in row order.
+
+    ``jobs``: per job ``(rows, shared, extra)``, ``rows`` a tuple of arrays
+    with one row each per query row (already centred and banded on the full
+    sets), ``shared`` a tuple of arrays every shard takes whole.
+    ``launch(jobs, device)`` makes one packed upload to ``device`` and one
+    launch, and returns the device output; ``split(host, jobs)`` cuts the
+    pulled output into a tuple of per-row arrays per job.  The mesh is the
+    active rows mesh (``utils.device.shard_rows_over``), else
+    ``config.device`` alone: every job's rows split over its shards in
+    order, each shard makes its own upload and launch on its device and
+    stream (none when all its slices are empty) through
+    ``utils.device.run_shards``, and the shards' rows are joined in
+    order."""
+    mesh = active_rows_mesh() or Mesh([config.device])
+
+    def mine(shard):
+        return [(tuple(r[shard.part(len(rows[0]))] for r in rows), shared, extra)
+                for rows, shared, extra in jobs]
+
+    def go(shard):
+        part = mine(shard)
+        if not any(len(rows[0]) for rows, _, _ in part):
+            return None
+        return launch(part, shard.device)
+
+    parts = [split(host, mine(shard)) for shard, host in run_shards(mesh, 0, go)]
+    return [tuple(np.concatenate([p[q][c] for p in parts]) for c in range(len(parts[0][q])))
+            for q in range(len(jobs))]
+
+
+def _pack_pairs(jobs, device):
+    """One packed upload of every job's (a, b) sets: the buffer and each
+    job's ``(a_off, n, b_off, m)``."""
+    sets = [s for (a,), (b,), _ in jobs for s in (a, b)]
+    pts, offs = to_device_packed(sets, config.compute_dtype, device)
+    return pts, [(offs[2 * q], len(a), offs[2 * q + 1], len(b))
+                 for q, ((a,), (b,), _) in enumerate(jobs)]
+
+
+def _nearest_launch(jobs, device):
+    pts, desc = _pack_pairs(jobs, device)
+    return _nearest_op.nearest_batch(pts, pts, desc)
+
+
+def _nearest_split(buf, jobs):
+    m1, idx, m2 = (v.numpy() for v in _nearest_op.views(torch.from_numpy(buf),
+                                                         config.compute_dtype))
+    out, row = [], 0
+    for (a,), _, _ in jobs:
+        out.append((m1[row:row + len(a)], idx[row:row + len(a)], m2[row:row + len(a)]))
+        row += len(a)
+    return out
+
+
+def _count_launch(jobs, device, flags=False):
+    pts, desc = _pack_pairs(jobs, device)
+    return _radius_count_op.radius_count_batch(
+        pts, pts, [d + band for d, (_, _, band) in zip(desc, jobs)], flags=flags)
+
+
+def _count_split(words, jobs, flags=False):
+    pairs = [(0, len(a), 0, len(b), *band) for (a,), (b,), band in jobs]
+    views = _radius_count_op.batch_views(words, pairs, flags)
+    return [(v,) if flags else v for v in views]
+
+
+_flags_launch = functools.partial(_count_launch, flags=True)
+_flags_split = functools.partial(_count_split, flags=True)
+
+
 def min_sqdist(a: np.ndarray, b: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Per-row min squared distance (and first-wins argmin) from a (N,3) to
     b (M,3), exact in float64 (see :func:`min_sqdist_pairs`)."""
@@ -149,18 +230,13 @@ def min_sqdist_pairs(
         live.append((k, a64, b64, maxc))
     if not live:
         return out
-    pts, offs = to_device_packed(sets, config.compute_dtype)
-    desc = [(offs[2 * q], len(a64), offs[2 * q + 1], len(b64))
-            for q, (_, a64, b64, _) in enumerate(live)]
-    buf = to_host(_nearest_op.nearest_batch(pts, pts, desc))
-    m1_all, idx_all, m2_all = _nearest_op.views(torch.from_numpy(buf), config.compute_dtype)
-    row = 0
-    for k, a64, b64, maxc in live:
+    picks = _per_row([((sets[2 * q],), (sets[2 * q + 1],), None) for q in range(len(live))],
+                     _nearest_launch, _nearest_split)
+    for (k, a64, b64, maxc), (m1, args, m2) in zip(live, picks):
         n = len(a64)
-        m1 = m1_all[row:row + n].numpy().astype(np.float64)
-        m2 = m2_all[row:row + n].numpy().astype(np.float64)
-        args = idx_all[row:row + n].numpy().copy()
-        row += n
+        m1 = m1.astype(np.float64)
+        m2 = m2.astype(np.float64)
+        args = args.copy()
         band = (24.0 * np.sqrt(np.maximum(m1, 0.0)) * maxc + 10.0 * m1) * _eps()
         ambiguous = (m2 - m1) <= band
         changed = 0
@@ -348,13 +424,10 @@ def count_within_radius_pairs(
         live.append((k, a64, b64, _radius_band(float(radius), maxc)))
     if not live:
         return out
-    pts, offs = to_device_packed(sets, config.compute_dtype)
-    desc = [(offs[2 * q], len(a64), offs[2 * q + 1], len(b64), lo, hi)
-            for q, (_, a64, b64, (_, lo, hi)) in enumerate(live)]
-    words = to_host(_radius_count_op.radius_count_batch(pts, pts, desc))
-    for (k, a64, b64, (r2, _, _)), (certain, near) in zip(
-        live, _radius_count_op.batch_views(words, desc)
-    ):
+    words = _per_row([((sets[2 * q],), (sets[2 * q + 1],), band[1:])
+                      for q, (_, _, _, band) in enumerate(live)],
+                     _count_launch, _count_split)
+    for (k, a64, b64, (r2, _, _)), (certain, near) in zip(live, words):
         counts = certain.astype(np.int64)
         near_rows = near > 0
         changed = 0
@@ -396,10 +469,7 @@ def within_radius_of_any(pts: np.ndarray, targets: np.ndarray, radius: float) ->
         return _count_rows_exact_dense(p64, t64, float(radius) * float(radius)) > 0
     (pc, tc), maxc = _centred(p64, t64)
     r2, r2lo, r2hi = _radius_band(float(radius), maxc)
-    pts, (po, to) = to_device_packed([pc, tc], config.compute_dtype)
-    flags = to_host(_radius_count_op.radius_count_batch(
-        pts, pts, [(po, len(pc), to, len(tc), r2lo, r2hi)], flags=True
-    ))
+    ((flags,),) = _per_row([((pc,), (tc,), (r2lo, r2hi))], _flags_launch, _flags_split)
     inside = (flags & 1).astype(bool)
     near = (flags & 2).astype(bool) & ~inside
     if near.any():
@@ -529,6 +599,65 @@ def _ray_triangle_hits_np(origins, directions, v0, v1, v2):
     return np.where(valid, t, np.inf)
 
 
+# Ray x face pairs above which the occlusion pass takes the ray kernel, by
+# the type of the rows' device; at or below it, and on a type without an
+# entry, the native grid DDA.  sweep_bench.py --family ray on the 57,606-vertex
+# case's rays (NVIDIA H100 80GB HBM3, 700 W): the kernel's whole route (upload,
+# launch, pull) beat the DDA at every measured size above 1.002e6 pairs and
+# lost there; on the CPU the kernel's plain version lost at every size.
+_RAY_NATIVE_THRESHOLD = {"cuda": 1_200_000}
+
+
+def _ray_launch(jobs, device):
+    ((origins, directions), (tris,), _), = jobs
+    pts, (o_off, d_off, t_off) = to_device_packed(
+        [origins, directions, tris], torch.float64, device)
+    n, f = len(origins), len(tris) // 3
+    return _ray_op.ray_hits(pts[o_off:o_off + n], pts[d_off:d_off + n],
+                            pts[t_off:t_off + 3 * f].view(f, 3, 3))
+
+
+def _ray_split(words, jobs):
+    n_hits, closest, _ = _ray_op.views(words)
+    return [(n_hits, closest)]
+
+
+@trace("ccta.rays")
+def ray_occlusion(origins: np.ndarray, directions: np.ndarray,
+                  tri: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per ray its Moller-Trumbore hit count against the faces ``tri``
+    [F, 3, 3] and the first face of its least t (0 when none is hit), in
+    float64.  Above ``_RAY_NATIVE_THRESHOLD``'s ray x face pairs for the
+    rows' device type the ray kernel (``ops.ray_triangle``) runs on
+    ``config.device`` in one launch, or one a shard with the rays split
+    under ``shard_rows_over``; else the native grid DDA
+    (``io.native.ray_occlusion_native``), and the numpy twin in chunks
+    where the native library is missing."""
+    if len(origins) == 0 or len(tri) == 0:
+        return np.zeros(len(origins), dtype=np.int64), np.zeros(len(origins), dtype=np.int64)
+    mesh = active_rows_mesh()
+    threshold = _RAY_NATIVE_THRESHOLD.get((mesh.devices[0] if mesh else config.device).type)
+    if threshold is not None and len(origins) * len(tri) > threshold:
+        ((n_hits, closest),) = _per_row(
+            [((origins, directions), (tri.reshape(-1, 3),), None)], _ray_launch, _ray_split)
+        return n_hits, closest
+    from ..io.native import ray_occlusion_native
+
+    native = ray_occlusion_native(origins, directions, tri.reshape(-1, 9))
+    if native is not None:
+        return native
+    chunk = max(1, 1_000_000 // max(len(tri), 1))
+    hits, closest = [], []
+    for rs in range(0, len(origins), chunk):
+        t_vals = _ray_triangle_hits_np(
+            origins[rs : rs + chunk], directions[rs : rs + chunk],
+            tri[:, 0], tri[:, 1], tri[:, 2],
+        )
+        hits.append(np.isfinite(t_vals).sum(axis=1))
+        closest.append(np.argmin(t_vals, axis=1))
+    return np.concatenate(hits), np.concatenate(closest)
+
+
 @trace("ccta.occlusion")
 def occlusion_remove_mask(
     centerline_coronary: PyCenterline,
@@ -541,8 +670,8 @@ def occlusion_remove_mask(
     """bool[N] mask core of the occlusion removal: True = intramural point
     to relabel.  pts: [N, 3]; tri: [F, 3, 3] face vertex coordinates.
 
-    The rays take the native grid-DDA (``io.native.ray_occlusion_native``)
-    or, without the native library, the numpy Moller-Trumbore in chunks;
+    The rays take :func:`ray_occlusion` (the ray kernel on the card above
+    ``_RAY_NATIVE_THRESHOLD`` ray x face pairs, else the native grid DDA);
     the membership of the points near excluded faces is a radius count."""
     if len(pts) == 0 or len(tri) == 0:
         return np.zeros(len(pts), dtype=bool)
@@ -559,24 +688,8 @@ def occlusion_remove_mask(
     targets = np.tile(cor_targets, (len(cl_ao), 1))
     directions = targets - origins
 
-    faces_to_exclude = set()
-    from ..io.native import ray_occlusion_native
-
-    native = ray_occlusion_native(origins, directions, tri.reshape(-1, 9))
-    if native is not None:
-        n_hits, closest_face = native
-        faces_to_exclude.update(closest_face[n_hits >= 3].tolist())
-    else:
-        RAY_CHUNK = max(1, 1_000_000 // max(len(tri), 1))
-        for rs in range(0, len(origins), RAY_CHUNK):
-            t_vals = _ray_triangle_hits_np(
-                origins[rs : rs + RAY_CHUNK],
-                directions[rs : rs + RAY_CHUNK],
-                tri[:, 0], tri[:, 1], tri[:, 2],
-            )
-            n_hits = np.isfinite(t_vals).sum(axis=1)
-            closest_face = np.argmin(t_vals, axis=1)
-            faces_to_exclude.update(closest_face[n_hits >= 3].tolist())
+    n_hits, closest_face = ray_occlusion(origins, directions, tri)
+    faces_to_exclude = set(closest_face[n_hits >= 3].tolist())
 
     print(f"Total faces to exclude: {len(faces_to_exclude)}")
 

@@ -52,6 +52,25 @@ def default_dtype_for(device: torch.device) -> torch.dtype:
     return torch.float32 if device.type == "cuda" else torch.float64
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` (a CUDA device with its index), or
+    raise ``RuntimeError`` when it names a CUDA card that is not present."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{device} names a CUDA card and multimodars_torch found none; to "
+            "run on the CPU, ask for it with "
+            'multimodars_torch.config.set_device("cpu"), '
+            'multimodars_torch.config.use(device="cpu") or a mesh of "cpu" devices'
+        )
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"{device}: only {torch.cuda.device_count()} CUDA card(s) present")
+    return torch.device("cuda", index)
+
+
 class _Config:
     """Mutable runtime config: where and in which dtype the search runs."""
 
@@ -72,16 +91,8 @@ class _Config:
         self.device = torch.device(device)
 
     def check_device(self) -> torch.device:
-        """``self.device``, or raise ``RuntimeError`` when it is a CUDA
-        device and no card is present."""
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "multimodars_torch runs on the CUDA card by default and found "
-                "none; to run on the CPU, ask for it with "
-                'multimodars_torch.config.set_device("cpu") or '
-                'multimodars_torch.config.use(device="cpu")'
-            )
-        return self.device
+        """``self.device`` through :func:`check_device`."""
+        return check_device(self.device)
 
     @contextlib.contextmanager
     def use(self, device=None, dtype=None):

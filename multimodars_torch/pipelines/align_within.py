@@ -35,15 +35,9 @@ from ..models.frame import PyFrame
 from ..models.geometry import PyGeometry
 from ..models.point import PyContourPoint
 from ..models.tensor import TensorGeometry, geometry_to_tensor
-from ..ops.argmin_repair import (
-    repair_chain_deltas,
-    split_chain_packed,
-    split_packed,
-)
-from ..ops.rotation_search import (
-    chain_rotation_search,
-    multires_rotation_search_packed,
-)
+from ..ops.argmin_repair import repair_chain_deltas, split_chain_packed
+from ..ops.rotation_search import chain_rotation_search
+from ..parallel.cohort import cohort_mesh, sharded_search
 from ..utils.device import to_device
 from ..utils.logs import AlignLog, dump_table
 from ..utils.trace import span, trace
@@ -770,6 +764,7 @@ def align_frames_in_geometries(
     bruteforce: bool,
     sample_size: int,
     verbose: bool = True,
+    devices=None,
 ) -> List[Tuple[PyGeometry, List[AlignLog], bool]]:
     """Align several pullbacks with one batched rotation search.
 
@@ -777,21 +772,21 @@ def align_frames_in_geometries(
     every geometry's frame pairs are concatenated along the batch axis and
     searched together (dense tables when every set is valid at one width,
     masked otherwise); each geometry's flagged pairs are then repaired and
-    its host finish runs on its own.  Returns (geometry, logs, anomalous)
-    per input, in input order."""
+    its host finish runs on its own.  The pair batch is split in
+    contiguous slabs over the mesh of ``devices`` (``torch.device``s or
+    strings; None: ``config.device`` alone) by
+    ``parallel.cohort.sharded_search``.  Returns (geometry, logs,
+    anomalous) per input, in input order."""
     packed = [_validate_and_pack(g, sample_size) for g in geometries]
     test, ref, tmask, rmask = batch_pairs([(pts, mask) for _, _, pts, mask in packed])
     # every sample slot valid (one width, no mask) -> the mask-free tables
     dense = bool(tmask.all() and rmask.all())
-    dtype = config.compute_dtype
+    mesh = cohort_mesh([config.device] if devices is None else devices)
     with span("align_within.sweep"):
-        flat = multires_rotation_search_packed(
-            to_device(test, dtype), to_device(ref, dtype),
-            None if dense else to_device(tmask),
-            None if dense else to_device(rmask),
-            float(step_deg), float(range_deg), bool(bruteforce), dense=dense,
-        ).cpu().numpy()
-    delta_all, ties_all = split_packed(flat)
+        delta_all, ties_all = sharded_search(
+            test, ref, tmask, rmask, float(step_deg), float(range_deg),
+            mesh, bool(bruteforce), dense=dense,
+        )
 
     results = []
     offset = 0

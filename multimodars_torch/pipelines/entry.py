@@ -375,14 +375,16 @@ def cohort_processing(
     bruteforce: bool = False,
     sample_size: int = 500,
     verbose: bool = False,
+    devices=None,
 ):
     """Register a whole cohort of independent pullbacks in one batched
     search (no reference counterpart; the JAX package's extension).
 
     Every pullback's frame pairs concatenate along the batch axis of the
     rotation search (align_within.align_frames_in_geometries), so one search
-    serves N patients.  Returns a list of (geometry, logs, anomalous)
-    triples in input order."""
+    serves N patients; ``devices`` (a device list) splits that batch over a
+    mesh.  Returns a list of (geometry, logs, anomalous) triples in input
+    order."""
     if not input_data:
         return []
     geometries = []
@@ -396,5 +398,5 @@ def cohort_processing(
         )
     return align_frames_in_geometries(
         geometries, step_deg, range_deg, smooth, bruteforce, sample_size,
-        verbose=verbose,
+        verbose=verbose, devices=devices,
     )

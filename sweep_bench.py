@@ -35,6 +35,16 @@ this script) and builds its kernels.
   the public entry points every checkout since the toolkit's port has):
   the host clock around each run, ending in a synchronise, median of 11
   after 2 warm-ups, and the mean of the ``ccta.*`` stage spans.
+- ``--family ray`` times the occlusion pass's two routes,
+  ``ccta.kernels.ray_occlusion`` with ``_RAY_NATIVE_THRESHOLD`` forced to 0
+  (the ray kernel: one packed upload, one launch, one pull) and forced
+  above every size (the native grid DDA on the host), on the rays the
+  57,606-vertex case's occlusion pass casts (recorded from one
+  ``label`` -> ``scale`` -> ``stitch`` run) and on strided subsets of its
+  rays and contiguous subsets of its faces: the host clock around each
+  call, median of 11 after a warm-up.  It prints the smallest ray x face
+  count above which the kernel's route won at every measured size, and
+  the plain version's time on the CPU at two sizes.
 
 Bounds and shares are chip_smoke.py's.  To compare two versions, time them
 in one run on one card, in turns: parent, change, change, parent.
@@ -379,13 +389,68 @@ def bench_ccta_wall(torch, tag, runs=11):
                                                        sorted(spans.items())), flush=True)
 
 
+def bench_ray(torch, tag, runs=11):
+    import numpy as np
+
+    from chip_smoke import card_state, ccta_case, ccta_run, recorded_rays
+
+    import multimodars_torch as mt
+    from multimodars_torch.ccta import kernels as ck
+
+    with recorded_rays() as rays:
+        ccta_run(torch, mt, ccta_case(mt))
+    origins, directions, tri = rays[0]
+    saved = ck._RAY_NATIVE_THRESHOLD
+
+    def route_ms(threshold, o, d, t):
+        ck._RAY_NATIVE_THRESHOLD = threshold
+        ck.ray_occlusion(o, d, t)
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            ck.ray_occlusion(o, d, t)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[runs // 2]
+
+    wins = []
+    try:
+        for n_faces in (len(tri), 10_000, 3_000, 1_000):
+            for stride in (1, 3, 10, 30, 100, 300):
+                o, d = origins[::stride], directions[::stride]
+                t = np.ascontiguousarray(tri[:n_faces])
+                pairs = len(o) * len(t)
+                kernel = route_ms(0, o, d, t)
+                dda = route_ms(pairs, o, d, t)
+                wins.append((pairs, kernel <= dda))
+                print(f"[bench-ray] {tag}: [{len(o)}] x [{len(t)}] = {pairs:.3e} pairs: "
+                      f"kernel route {kernel:.4f} ms, native DDA {dda:.4f} ms", flush=True)
+        losses = [p for p, won in wins if not won]
+        sizes = f"sizes {min(p for p, _ in wins):.3e}-{max(p for p, _ in wins):.3e}"
+        if losses and max(losses) == max(p for p, _ in wins):
+            print(f"[bench-ray] {tag}: the kernel route lost at the largest size ({sizes})",
+                  flush=True)
+        else:
+            print(f"[bench-ray] {tag}: the kernel route won at every measured size above "
+                  f"{max(losses, default=0):.3e} pairs ({sizes})", flush=True)
+        with mt.config.use(device="cpu"):
+            for stride in (1, 10):
+                o, d = origins[::stride], directions[::stride]
+                print(f"[bench-ray] {tag}: on the CPU [{len(o)}] x [{len(tri)}]: plain "
+                      f"{route_ms(0, o, d, tri):.2f} ms, native DDA "
+                      f"{route_ms(len(o) * len(tri), o, d, tri):.4f} ms", flush=True)
+    finally:
+        ck._RAY_NATIVE_THRESHOLD = saved
+    print(f"[bench-ray] {tag}: card {card_state()}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose multimodars_torch is timed")
     ap.add_argument("--tag", default="", help="label printed on every line")
-    ap.add_argument("--family", choices=["sweep", "ccta", "ccta-wall"], default="sweep",
-                    help="the sweep kernel, or the CCTA count, pick and morph-sweep kernels")
+    ap.add_argument("--family", choices=["sweep", "ccta", "ccta-wall", "ray"], default="sweep",
+                    help="the sweep kernel, the CCTA count, pick and morph-sweep kernels, "
+                         "the CCTA wall clock, or the occlusion pass's two ray routes")
     ap.add_argument("--only-morph", action="store_true",
                     help="with --family ccta: the morph-sweep shapes alone")
     ap.add_argument("--sass", action="store_true",
@@ -414,6 +479,9 @@ def main() -> int:
     tag = args.tag or root.name
     if args.family == "ccta-wall":
         bench_ccta_wall(torch, tag)
+        return 0
+    if args.family == "ray":
+        bench_ray(torch, tag)
         return 0
     if args.family == "ccta":
         if not args.only_morph:

@@ -798,3 +798,126 @@ def test_vessel_tree_on_cuda_matches_cpu(cuda):
                 for (gi, gp, gx), (wi, wp, wx) in zip(gs, ws):
                     assert gi == wi and gp == wp and np.array_equal(gx, wx)
             assert g_refs == w_refs
+
+
+# ---------------------------------------------------------------------------
+# the ray-triangle kernel and multi-device execution
+# ---------------------------------------------------------------------------
+
+def _ray_case(R, F, seed):
+    """Rays and faces from a seed, with edge, vertex and parallel rays: the
+    first rays aim at a face's vertex, at the middle of its edge, and along
+    its plane."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.normal(0, 2, (F, 3))
+    tris = np.stack([v0, v0 + rng.normal(0, 1, (F, 3)), v0 + rng.normal(0, 1, (F, 3))], 1)
+    o = rng.normal(0, 3, (R, 3))
+    d = rng.normal(0, 1, (R, 3))
+    if F and R >= 3:
+        d[0] = tris[0, 1] - o[0]  # through a vertex
+        d[1] = 0.5 * (tris[1 % F, 0] + tris[1 % F, 2]) - o[1]  # through an edge's middle
+        o[2] = tris[0, 0] - (tris[0, 1] - tris[0, 0])
+        d[2] = tris[0, 1] - tris[0, 0]  # in the face's plane
+    return o, d, tris
+
+
+@pytest.mark.parametrize("R, F", [(1000, 5000), (1, 300), (37, 0), (257, 1)])
+def test_ray_kernel_matches_plain(cuda, R, F):
+    """n_hits, closest and the bits of t_min equal the plain version's on
+    the card and on the CPU."""
+    from multimodars_torch.ops import ray_triangle as rt
+
+    o, d, tris = _ray_case(R, F, seed=R + F)
+    args = [torch.tensor(x, dtype=torch.float64, device=cuda) for x in (o, d, tris)]
+    launches = rt.launches
+    got = rt.ray_hits(*args)
+    assert rt.launches == launches + 1
+    want = rt.ray_hits_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    cpu = rt.ray_hits_plain(*(a.cpu() for a in args))
+    assert torch.equal(got.cpu(), cpu)
+    if F:
+        assert int(rt.views(got)[0].sum()) > 0 or R < 10
+
+
+def test_occlusion_rays_take_the_kernel_on_the_card_above_the_threshold(cuda):
+    """On the card the occlusion pass's rays take the kernel in one launch
+    above the threshold and the native grid DDA at or below it, with the
+    same (n_hits, closest) as the CPU's native route."""
+    from multimodars_torch.ccta import kernels as ck
+    from multimodars_torch.ops import ray_triangle as rt
+
+    o, d, tris = _ray_case(1300, 1000, seed=4)
+    assert len(o) * len(tris) > ck._RAY_NATIVE_THRESHOLD["cuda"]
+    with mt.config.use(device="cpu"):
+        launches = rt.launches
+        want = ck.ray_occlusion(o, d, tris)
+        assert rt.launches == launches
+    with mt.config.use(device=cuda):
+        got = ck.ray_occlusion(o, d, tris)
+        assert rt.launches == launches + 1
+        below = ck.ray_occlusion(o[:100], d[:100], tris)
+        assert rt.launches == launches + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(below, want):
+        np.testing.assert_array_equal(g, w[:100])
+
+
+def test_ray_kernel_refuses_float32(cuda):
+    from multimodars_torch.ops import ray_triangle as rt
+
+    o, d, tris = _ray_case(8, 8, seed=1)
+    args = [torch.tensor(x, dtype=torch.float32, device=cuda) for x in (o, d, tris)]
+    with pytest.raises(ValueError, match="float64"):
+        rt.ray_hits(*args)
+
+
+def _oct_sets(F=24, N=120, seed=3):
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 2 * math.pi, N, endpoint=False)
+    pts = []
+    for _ in range(F + 1):
+        a, b, rot = 2.0 + 0.2 * rng.standard_normal(), 1.4 + 0.2 * rng.standard_normal(), rng.uniform(-0.4, 0.4)
+        x, y = a * np.cos(th), b * np.sin(th)
+        pts.append(np.stack([x * math.cos(rot) - y * math.sin(rot),
+                             x * math.sin(rot) + y * math.cos(rot)], -1))
+    pts = np.asarray(pts)
+    mask = np.ones(pts.shape[:2], bool)
+    return pts[1:], pts[:-1], mask[1:], mask[:-1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_four_shards_of_one_card_equal_one(cuda, dtype):
+    """The cohort, the angle-sharded search and the row-sharded count on a
+    mesh naming cuda:0 four times (one stream a shard) equal one shard bit
+    for bit, every shard launching its own kernels."""
+    from multimodars_torch import parallel
+    from multimodars_torch.ccta import kernels as ck
+    from multimodars_torch.ops import radius_count as rc
+
+    test, ref, tm, rm = _oct_sets()
+    one, four = [cuda], [cuda] * 4
+    with mt.config.use(device=cuda, dtype=dtype):
+        launches = sweep.launches
+        c4 = parallel.cohort_relative_rotations(test, ref, tm, rm, 0.5, 20.0,
+                                                parallel.cohort_mesh(four))
+        assert sweep.launches >= launches + 4
+        c1 = parallel.cohort_relative_rotations(test, ref, tm, rm, 0.5, 20.0,
+                                                parallel.cohort_mesh(one))
+        np.testing.assert_array_equal(c4, c1)
+        for brute in (False, True):
+            a4 = parallel.sharded_multires_search(test, ref, tm, rm, 0.1, 6.0,
+                                                  parallel.angle_mesh(four), brute)
+            a1 = parallel.sharded_multires_search(test, ref, tm, rm, 0.1, 6.0,
+                                                  parallel.angle_mesh(one), brute)
+            np.testing.assert_array_equal(a4, a1)
+        rng = np.random.default_rng(9)
+        a, b = rng.normal(0, 3, (5000, 3)), rng.normal(0, 3, (7000, 3))
+        launches = rc.launches
+        n4 = parallel.sharded_count_within_radius(a, b, 1.0, parallel.rows_mesh(four))
+        assert rc.launches == launches + 4
+        n1 = parallel.sharded_count_within_radius(a, b, 1.0, parallel.rows_mesh(one))
+        np.testing.assert_array_equal(n4, n1)
+        np.testing.assert_array_equal(n1, ck._count_rows_exact_dense(a, b, 1.0))

@@ -139,7 +139,7 @@ def test_catheter_start_roll_follows_the_last_ulp(monkeypatch):
     Fed the JAX package's angles, the port reproduces its output."""
     from multimodars_tpu.pipelines import align_within as j_aw
 
-    from multimodars_torch.pipelines import align_within as t_aw
+    from multimodars_torch.parallel import cohort as t_cohort
 
     deltas = []
     finish = j_aw._finish_alignment_tensor_coords
@@ -166,7 +166,7 @@ def test_catheter_start_roll_follows_the_last_ulp(monkeypatch):
         angles = np.concatenate(deltas)
         return torch.tensor(np.concatenate([angles, np.zeros_like(angles)]))
 
-    monkeypatch.setattr(t_aw, "multires_rotation_search_packed",
+    monkeypatch.setattr(t_cohort, "multires_rotation_search_packed",
                         search_with_jax_angles)
     got = _quiet(mt.from_array_singlepair, *_make_datas(mt, n=2, seed=5),
                  write_obj=False)
@@ -182,12 +182,13 @@ def test_start_roll_pairs_follow_the_exact_ladder(monkeypatch):
     from multimodars_tpu.ops.argmin_repair import exact_ladder
     from multimodars_tpu.pipelines import align_within as j_aw
 
+    from multimodars_torch.parallel import cohort as t_cohort
     from multimodars_torch.pipelines import align_within as t_aw
 
     j_deltas, t_deltas, t_sets = [], [], []
     j_finish = j_aw._finish_alignment_tensor_coords
     t_finish = t_aw._finish_alignment_tensor
-    t_search = t_aw.multires_rotation_search_packed
+    t_search = t_cohort.multires_rotation_search_packed
 
     def j_spy(tg, delta, *args, **kwargs):
         j_deltas.append(np.array(delta, dtype=np.float64))
@@ -204,7 +205,7 @@ def test_start_roll_pairs_follow_the_exact_ladder(monkeypatch):
 
     monkeypatch.setattr(j_aw, "_finish_alignment_tensor_coords", j_spy)
     monkeypatch.setattr(t_aw, "_finish_alignment_tensor", t_spy)
-    monkeypatch.setattr(t_aw, "multires_rotation_search_packed", search_spy)
+    monkeypatch.setattr(t_cohort, "multires_rotation_search_packed", search_spy)
     _jax(monkeypatch, "fallback", mj.from_array_singlepair,
          *_make_datas(mj, n=2, seed=5), write_obj=False)
     _quiet(mt.from_array_singlepair, *_make_datas(mt, n=2, seed=5),

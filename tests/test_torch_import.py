@@ -138,6 +138,38 @@ def test_every_jax_export_is_exported():
     assert sorted(set(mj.__all__) - set(mt.__all__)) == []
 
 
+_PARALLEL_NAMES = (
+    "angle_mesh", "sharded_multires_search", "rows_mesh", "shard_rows_over",
+    "sharded_count_within_radius", "cohort_mesh", "cohort_relative_rotations",
+    "batched_pairs_from_geometries",
+)
+
+
+@pytest.mark.parametrize("name", _PARALLEL_NAMES)
+def test_parallel_exports_jax_names(name):
+    """``multimodars_torch.parallel`` exports the JAX package's eight names,
+    each with the JAX function's parameters, but for the JAX package's
+    ``pad_pairs_to`` of ``batched_pairs_from_geometries`` (the port's mesh
+    takes uneven slabs, so nothing is padded)."""
+    from multimodars_torch import parallel as tp
+    from multimodars_tpu import parallel as jp
+
+    assert sorted(tp.__all__) == sorted(jp.__all__) == sorted(_PARALLEL_NAMES)
+    want = _parameters(getattr(jp, name))
+    if name == "batched_pairs_from_geometries":
+        want = [p for p in want if p[0] != "pad_pairs_to"]
+    assert _parameters(getattr(tp, name)) == want
+
+
+def test_from_array_cohort_takes_devices():
+    import multimodars_torch as mt
+    import multimodars_tpu as mj
+
+    got = dict(_parameters(mt.from_array_cohort))
+    assert "devices" in got and got["devices"] is None
+    assert _parameters(mt.from_array_cohort) == _parameters(mj.from_array_cohort)
+
+
 _MODEL_CLASSES = (
     "PyContourPoint", "PyContour", "PyFrame", "PyGeometry", "PyGeometryPair",
     "PyCenterline", "PyCenterlinePoint", "PyInputData", "PyRecord",
