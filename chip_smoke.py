@@ -83,14 +83,19 @@ Phases:
    unsharded f32 run and its f64 CPU run (the native grid DDA), count,
    pick and ray launches per shard; the ray kernel against plain on the
    run's rays (bit for bit) and against the native grid DDA
-   (disagreements counted), with ms, bound and share, and the occlusion
-   pass's two routes on those rays timed whole
+   (disagreements counted), with ms, bound and share, the kernel's
+   registers and resident blocks, its plan (blocks, waves), the share of
+   pairs that took its exact path and its launches a call, and the
+   occlusion pass's two routes on those rays timed whole; then the ray
+   kernel on seeded adversarial rays (``adversarial_ray_case``), bit for
+   bit against plain
 
 Every phase prints its lines; any failure exits non-zero.  The line before
 the last is the kernel summary JSON, the last line is
 ``{"ok": true, "device": {...}}``.  ``--only kernel`` stops after phase 2
 and holds the refine kernel and the four CCTA kernels against plain on
-inputs of their main-path shapes from a seed;
+inputs of their main-path shapes from a seed (the ray kernel also on the
+adversarial rays);
 ``--profile`` adds a torch.profiler breakdown of one steady run of each
 main path.
 """
@@ -2055,8 +2060,7 @@ def phase_ccta(torch, mt, profile=False):
     if profile:
         by_name = profile_main_path(torch, run, "ccta_profile.json")
         for kernel in mods:
-            names = (("ray_partials_kernel", "ray_finish_kernel") if kernel == "ray_triangle"
-                     else (f"{kernel}_kernel",))
+            names = ("ray_hits_kernel",) if kernel == "ray_triangle" else (f"{kernel}_kernel",)
             us = sum(v[0] for k, v in by_name.items() if any(n in k for n in names))
             count = sum(v[1] for k, v in by_name.items() if any(n in k for n in names))
             say("profile", f"{kernel}: {count} launches in the profiled run, device "
@@ -2126,46 +2130,73 @@ def host_ms(fn, reps):
 
 def check_ray_call(torch, origins, directions, tris, label, native_check=True):
     """The ray kernel against its plain version on the card on these rays:
-    the whole output equal bit for bit (hits, closest face, t_min), and
+    the whole output equal bit for bit (hits, closest face, t_min), also
+    after the timed calls (the kernel resets its own scratch), and to the
+    kernel-order emulation (``ray_triangle.ray_hits_ordered`` at the
+    launch's plan, which also counts the pairs that took the exact path);
     (hits, closest) against the native grid DDA, whose disagreements are
     counted; the occlusion pass's two routes on these rays are timed whole
     (``ccta.kernels.ray_occlusion``: the kernel's upload, launch and pull,
-    and the native DDA).  Returns the kernel's row of the kernels line."""
+    and the native DDA).  Prints the kernel's registers and resident blocks,
+    the plan and the launches a call.  Returns the kernel's row of the
+    kernels line."""
     import numpy as np
 
     from multimodars_torch.ccta import kernels as ck
     from multimodars_torch.io import native
+    from multimodars_torch.ops import _cuda_build
     from multimodars_torch.ops import ray_triangle as rt
 
     dev = torch.device(MESH_DEVICE)
     args = [torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64, device=dev)
             for x in (origins, directions, tris)]
+    n, m = len(origins), len(tris)
     saved = rt.launches
     got = rt.ray_hits(*args)
+    per_call = rt.launches - saved
     want = rt.ray_hits_plain(*args)
+    plan = rt.launch_plan(n, m, dev)
+    ordered, exact = rt.ray_hits_ordered(*args, plan)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), f"{label}: the ray kernel differs from plain")
+    check(per_call == 1, f"{label}: {per_call} ray kernel launches in one call")
+    if not torch.equal(got, want):
+        bad = (got != want).any(0).nonzero().flatten().tolist()
+        for r in bad[:8]:  # (n_hits, closest, t_min) of the kernel, plain and the emulation
+            say("ccta-tables", f"{label}: ray {r}: " + "; ".join(
+                f"{name} {[v[r].item() for v in rt.views(x)]}"
+                for name, x in (("kernel", got), ("plain", want), ("emulation", ordered))))
+        check(False, f"{label}: the ray kernel differs from plain in {len(bad)} rays")
+    check(torch.equal(ordered, want), f"{label}: the kernel-order emulation differs from plain")
     g_hits, g_closest, g_t = (v.cpu().numpy() for v in rt.views(got))
     w_t = rt.views(want)[2].cpu().numpy()
     fin = np.isfinite(w_t)
     err = float(np.abs(g_t[fin] - w_t[fin]).max()) if fin.any() else 0.0
     ms = cuda_ms(torch, lambda: rt.ray_hits(*args), 5)
+    check(torch.equal(rt.ray_hits(*args), want), f"{label}: a repeated launch differs from plain")
     routes = {}
     if native_check:
         saved_threshold = ck._RAY_NATIVE_THRESHOLD
         try:
-            for name, threshold in (("kernel", 0), ("native DDA", len(origins) * len(tris))):
+            for name, threshold in (("kernel", 0), ("native DDA", n * m)):
                 ck._RAY_NATIVE_THRESHOLD = {"cuda": threshold}
                 routes[name] = host_ms(lambda: ck.ray_occlusion(origins, directions, tris), 5)
         finally:
             ck._RAY_NATIVE_THRESHOLD = saved_threshold
     rt.launches = saved  # launches made to compare with plain do not count
     plain_ms = cuda_ms(torch, lambda: rt.ray_hits_plain(*args), 1)
-    bound, by = ray_bound(torch, len(origins), len(tris))
-    line = (f"ray_triangle f64 [{len(origins)}] x [{len(tris)}]: kernel {ms:.4f} ms, plain "
+    bound, by = ray_bound(torch, n, m)
+    info = rt.kernel_info(dev)
+    pairs = max(n * m, 1)
+    line = (f"ray_triangle f64 [{n}] x [{m}]: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}), {100.0 * bound / ms:.1f}% of "
-            f"bound, {len(origins) * len(tris):.3e} pairs, {int((g_hits > 0).sum())} rays hit, "
-            f"t_min and hits bit-equal to plain")
+            f"bound, {n * m:.3e} pairs, {int((g_hits > 0).sum())} rays hit, "
+            f"t_min and hits bit-equal to plain and to the kernel-order emulation; "
+            f"{per_call} launch a call, plan {plan.groups} ray groups x {plan.splits} splits of "
+            f"{plan.per_split} faces = {plan.groups * plan.splits} blocks in {plan.waves} "
+            f"wave(s) of {_cuda_build.sm_count(dev)} SMs x {info['blocks_per_sm']} resident "
+            f"blocks; {info['registers']} registers a thread, {info['local_bytes']} spilled "
+            f"bytes, {info['shared_bytes']} shared bytes a block; exact path {exact} pairs "
+            f"({100.0 * exact / pairs:.4f}%)")
     if native_check:
         dda = quiet(native.ray_occlusion_native, origins, directions, tris.reshape(-1, 9))
         check(dda is not None, "the native library did not load: no grid DDA to compare")
@@ -2177,18 +2208,115 @@ def check_ray_call(torch, origins, directions, tris, label, native_check=True):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
 
-def synthetic_ray_call(torch):
+def synthetic_ray_case(np):
     """1000 seeded rays against 37,905 seeded faces (phase 8's shape),
-    through the middle of the faces' cloud so that rays hit."""
-    import numpy as np
-
+    through the middle of the faces' cloud so that rays hit: (origins,
+    directions, faces)."""
     rng = np.random.default_rng(17)
     v0 = rng.normal(0.0, 10.0, (37905, 3))
     tris = np.stack([v0, v0 + rng.normal(0.0, 1.0, (37905, 3)),
                      v0 + rng.normal(0.0, 1.0, (37905, 3))], 1)
     origins = rng.normal(0.0, 2.0, (1000, 3))
     directions = rng.normal(0.0, 1.0, (1000, 3))
-    return check_ray_call(torch, origins, directions, tris, "seeded", native_check=False)
+    return origins, directions, tris
+
+
+def synthetic_ray_call(torch):
+    import numpy as np
+
+    return check_ray_call(torch, *synthetic_ray_case(np), "seeded", native_check=False)
+
+
+def adversarial_ray_case(np, seed=23):
+    """Seeded rays and faces at the edges of the ray test, (origins [R, 3],
+    directions [R, 3], faces [F, 3, 3]), every ray against every face:
+
+    - a right triangle of legs c = 2^k in z = 0 and rays along +-z through
+      (c x, c y), so that a = -+c^2, u = x, v = y and t = 1 exactly: u and v
+      at 0, -0.0, 1, 1 +- one ulp, u + v at 1 +- one ulp, subnormal u, and
+      |a| from 2^-6 up to 2^920 (past the filter's 2^900);
+    - |a| at 1e-8 and one ulp either side (the parallel test);
+    - un underflowing to +-0 and u rounding to -0.0 (a hit the twin takes)
+      or to a tiny negative number (a miss);
+    - degenerate faces (repeated or collinear vertices);
+    - a fan of faces around one vertex with rays that end on it (t = 1),
+      on its outer vertices and on its spokes' middles;
+    - random faces with rays aimed at their vertices and edges;
+    - huge faces (coordinates near 2^460), where a passes 2^900 or
+      overflows."""
+    rng = np.random.default_rng(seed)
+    origins, directions, tris = [], [], []
+    up, down, tiny = np.nextafter(1.0, 2.0), np.nextafter(1.0, 0.0), 5e-324
+    xs = (0.0, -0.0, 1.0, down, up, 0.5, 0.25, tiny, -tiny, 1e-300, -1e-300)
+    ys = (0.0, -0.0, 0.5, 0.75, np.nextafter(0.75, 1.0), np.nextafter(0.75, 0.0), 1.0, tiny)
+    for k in (-3, 0, 5, 200, 455, 460):
+        c = 2.0 ** k
+        tris.append([[0.0, 0.0, 0.0], [c, 0.0, 0.0], [0.0, c, 0.0]])
+        for x in xs:
+            for y in ys:
+                for sign in (1.0, -1.0):
+                    origins.append([c * x, c * y, -sign])
+                    directions.append([0.0, 0.0, sign])
+    eps = 1e-8
+    for delta in (eps, np.nextafter(eps, 0.0), np.nextafter(eps, 1.0)):
+        for x in (0.25, 1.0, down, up):
+            origins.append([x, 0.25, -1.0])
+            directions.append([0.0, 0.0, delta])
+    for k, xis in ((400, (-2.0 ** -700, 2.0 ** -700, -2.0 ** -500, -tiny)),
+                   (-10, (tiny, -tiny, 2.0 ** -1060))):
+        c = 2.0 ** k
+        tris.append([[0.0, 0.0, 0.0], [c, 0.0, 0.0], [0.0, c, 0.0]])
+        for xi in xis:
+            origins.append([xi, 0.25 * c, -1.0])
+            directions.append([0.0, 0.0, 1.0])
+    p, q = rng.normal(0.0, 2.0, (2, 3))
+    tris += [[p, p, q], [p, q, q], [p, p, p], [p, q, 2.0 * q - p]]
+    origins += [rng.normal(0.0, 5.0, 3) for _ in range(4)]
+    directions += [p - origins[-k] for k in range(1, 5)]
+    # a fan around `center`, in a random plane, its vertex in every place
+    center = rng.normal(0.0, 2.0, 3)
+    basis = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    ring = [center + 1.5 * (np.cos(a) * basis[0] + np.sin(a) * basis[1])
+            for a in np.linspace(0.0, 2.0 * np.pi, 8, endpoint=False)]
+    for i in range(8):
+        a, b = ring[i], ring[(i + 1) % 8]
+        tris += [[center, a, b], [a, center, b], [a, b, center]][i % 3:i % 3 + 1]
+    for _ in range(16):
+        o = center + rng.normal(0.0, 4.0, 3)
+        for target in (center, ring[rng.integers(8)], 0.5 * (center + ring[rng.integers(8)])):
+            origins.append(o)
+            directions.append(target - o)
+    v0 = rng.normal(0.0, 3.0, (40, 3))
+    rand = np.stack([v0, v0 + rng.normal(0.0, 1.0, (40, 3)), v0 + rng.normal(0.0, 1.0, (40, 3))], 1)
+    tris += list(rand)
+    for f in rand:
+        o = rng.normal(0.0, 5.0, 3)
+        lam = rng.uniform()
+        for target in (f[0], f[1], f[2], f[0] + lam * (f[1] - f[0]), f[0] + 0.5 * (f[2] - f[0]),
+                       f[1] + lam * (f[2] - f[1])):
+            origins.append(o)
+            directions.append(target - o)
+    huge = 2.0 ** 460 * (rng.normal(0.0, 1.0, (4, 3, 3)) + [[[3.0, 0.0, 0.0]]])
+    tris += list(huge)
+    for f in huge:
+        o = rng.normal(0.0, 1.0, 3)
+        for target in (f[0], f.mean(0)):
+            origins.append(o)
+            directions.append(target - o)
+            directions.append((target - o) / np.linalg.norm(target - o))
+            origins.append(o)
+    return (np.asarray(origins, dtype=np.float64), np.asarray(directions, dtype=np.float64),
+            np.asarray(tris, dtype=np.float64))
+
+
+def adversarial_ray_call(torch):
+    """The ray kernel on :func:`adversarial_ray_case`, bit for bit against
+    plain."""
+    import numpy as np
+
+    with np.errstate(all="ignore"):
+        case = adversarial_ray_case(np)
+    return check_ray_call(torch, *case, "adversarial", native_check=False)
 
 
 @contextlib.contextmanager
@@ -2449,6 +2577,7 @@ def main() -> int:
         mesh_ray_launches, rres = phase_mesh(torch, mt, ccta_state)
         # phase 8's counted run and phase 9's three counted runs
         ray_launches = ccta_launches["ray_triangle"] + mesh_ray_launches
+    rres["max_abs_err"] = max(rres["max_abs_err"], adversarial_ray_call(torch)["max_abs_err"])
     for name in sorted(sys.modules):
         if name == "jax" or name.startswith(("jax.", "multimodars_tpu")):
             print(f"FAIL: {name} was imported", flush=True)

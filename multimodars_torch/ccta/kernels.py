@@ -602,9 +602,11 @@ def _ray_triangle_hits_np(origins, directions, v0, v1, v2):
 # Ray x face pairs above which the occlusion pass takes the ray kernel, by
 # the type of the rows' device; at or below it, and on a type without an
 # entry, the native grid DDA.  sweep_bench.py --family ray on the 57,606-vertex
-# case's rays (NVIDIA H100 80GB HBM3, 700 W): the kernel's whole route (upload,
-# launch, pull) beat the DDA at every measured size above 1.002e6 pairs and
-# lost there; on the CPU the kernel's plain version lost at every size.
+# case's rays, with the kernel of csrc/ray_triangle.cu as redesigned for
+# Hopper (NVIDIA H100 80GB HBM3, 700 W): the kernel's whole route (upload,
+# launch, pull; 0.25-0.76 ms, mostly host time) beat the DDA at every
+# measured size above 1.002e6 pairs and lost there (0.3770 against 0.2802
+# ms); on the CPU the kernel's plain version lost at every size.
 _RAY_NATIVE_THRESHOLD = {"cuda": 1_200_000}
 
 

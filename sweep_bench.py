@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
     python3 sweep_bench.py                        # this checkout's sweep kernel
     python3 sweep_bench.py --root OTHER_TREE      # another checkout's
     python3 sweep_bench.py --family ccta [--root OTHER_TREE]
+    python3 sweep_bench.py --family ray [--only-kernel] [--sass] [--root OTHER_TREE]
 
 It imports ``multimodars_torch`` from ``--root`` (default: the directory of
 this script) and builds its kernels.
@@ -35,7 +36,16 @@ this script) and builds its kernels.
   the public entry points every checkout since the toolkit's port has):
   the host clock around each run, ending in a synchronise, median of 11
   after 2 warm-ups, and the mean of the ``ccta.*`` stage spans.
-- ``--family ray`` times the occlusion pass's two routes,
+- ``--family ray`` times the ray kernel alone, ``ray_triangle.ray_hits(o,
+  d, tris)`` (the signature every checkout since the kernel's port has), on
+  the rays of the 57,606-vertex case's occlusion pass and on chip_smoke.py's
+  seeded 1000 x 37,905 call: CUDA events around 5 calls (median of 11
+  windows) and the device time of a call over every ray kernel it launches
+  (torch.profiler, 20 calls); ``--sass`` adds the instructions per pair of
+  its face loop on the filter path, the ptxas lines, and the FP64
+  operations a clock an SM that the card reaches on independent chains
+  (a kernel built from ``FP64_RATE_SOURCE`` into the build directory).  Then, unless
+  ``--only-kernel``, it times the occlusion pass's two routes,
   ``ccta.kernels.ray_occlusion`` with ``_RAY_NATIVE_THRESHOLD`` forced to 0
   (the ray kernel: one packed upload, one launch, one pull) and forced
   above every size (the native grid DDA on the host), on the rays the
@@ -389,21 +399,191 @@ def bench_ccta_wall(torch, tag, runs=11):
                                                        sorted(spans.items())), flush=True)
 
 
-def bench_ray(torch, tag, runs=11):
+def phase8_rays(torch):
+    """The rays, directions and faces of the 57,606-vertex case's occlusion
+    pass, recorded from one ``label`` -> ``scale`` -> ``stitch`` run."""
+    from chip_smoke import ccta_case, ccta_run, recorded_rays
+
+    import multimodars_torch as mt
+
+    with recorded_rays() as rays:
+        ccta_run(torch, mt, ccta_case(mt))
+    return rays[0]
+
+
+def bench_ray_kernel(torch, np, tag, rays):
+    """The ray kernel alone, ``ray_triangle.ray_hits(o, d, tris)`` on the
+    card's tensors, on phase 8's rays and on chip_smoke.py's seeded call:
+    CUDA events around 5 calls (median of 11 windows) and the device time
+    of a call over every ray kernel it launches (torch.profiler, 20 calls)."""
+    from chip_smoke import card_state, ray_bound, synthetic_ray_case
+
+    from multimodars_torch.ops import ray_triangle as rt
+
+    dev = torch.device("cuda", 0)
+    for name, case in (("phase 8's rays", rays), ("seeded", synthetic_ray_case(np))):
+        args = [torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64, device=dev)
+                for x in case]
+
+        def fn():
+            return rt.ray_hits(*args)
+
+        ms = events_ms(torch, fn)
+        dms, per_call = device_ms(torch, fn, "ray_")
+        bound, by = ray_bound(torch, len(case[0]), len(case[2]))
+        print(f"[bench-ray] {tag}: kernel alone, {name} [{len(case[0])}] x [{len(case[2])}]: "
+              f"events {ms:.4f} ms, device {dms:.4f} ms a call over {per_call:g} launch(es), "
+              f"bound {bound:.5f} ms ({by}), {100.0 * bound / ms:.1f}% of bound by events, "
+              f"{100.0 * bound / dms:.1f}% by device time (card after: {card_state()})",
+              flush=True)
+
+
+def ray_loop_sass(sass: str):
+    """The ray kernel's face loop in a ``cuobjdump -sass`` dump: the loop (a
+    backward branch) with the most FP64 multiplies, as (instructions,
+    opcodes on the filter path, opcodes of the skipped regions).  A skipped
+    region is the span that a forward branch of the loop jumps over and
+    that holds the reciprocal's ``MUFU.RCP64H``: the kept pairs' queue and
+    exact path, which most steps skip.  The filter path holds one DFMA a
+    pair (the filter's fused multiply-add)."""
+    import collections
+    import re
+
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        if "ray_hits_kernel" not in fn.split("\n", 1)[0]:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2).strip())
+               for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        at = {a: k for k, (a, _) in enumerate(ins)}
+
+        def opcode(op):
+            return re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+
+        best = None
+        for k, (a, op) in enumerate(ins):
+            t = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+            if t is None or int(t.group(1), 16) >= a or int(t.group(1), 16) not in at:
+                continue
+            body = ins[at[int(t.group(1), 16)]:k + 1]
+            muls = sum(opcode(o).startswith("DMUL") for _, o in body)
+            if best is None or muls > best[0]:
+                best = (muls, body)
+        if best is None:
+            return None
+        body = best[1]
+        skipped = set()
+        for k, (a, op) in enumerate(body):
+            t = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+            if t is None or not op.startswith("@") or int(t.group(1), 16) <= a:
+                continue
+            span = [j for j in range(k + 1, len(body)) if body[j][0] < int(t.group(1), 16)]
+            if any(opcode(body[j][1]).startswith("MUFU.RCP64H") for j in span):
+                skipped.update(span)
+        keep = collections.Counter(opcode(o) for j, (_, o) in enumerate(body) if j not in skipped)
+        drop = collections.Counter(opcode(body[j][1]) for j in skipped)
+        return len(body), keep, drop
+    return None
+
+
+def report_ray_sass(tag):
+    """Instructions per (ray, face) pair of the ray kernel's face loop on
+    its filter path, from this run's library, and its ptxas lines."""
+    import subprocess
+
+    from multimodars_torch.ops import _cuda_build
+    from multimodars_torch.ops import ray_triangle as rt
+
+    for line in _cuda_build.reports.get(rt.SOURCE.name, (0, ""))[1].splitlines():
+        if "registers" in line or "stack frame" in line:
+            print(f"[bench-ray] {tag}: ptxas: {line.strip()}", flush=True)
+    cuobjdump = Path(_cuda_build._nvcc("cuobjdump")).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda_build.library_path(rt.SOURCE))],
+                          check=True, capture_output=True, text=True).stdout
+    got = ray_loop_sass(sass)
+    if got is None:
+        print(f"[bench-ray] {tag}: sass: no ray_hits_kernel face loop found", flush=True)
+        return
+    n, keep, drop = got
+    pairs = max(1, sum(c for o, c in keep.items() if o.startswith("DFMA")))
+    fp64 = sum(c for o, c in keep.items() if o.startswith(("DMUL", "DADD", "DFMA", "DSETP")))
+    top = ", ".join(f"{o} {c}" for o, c in keep.most_common(10))
+    print(f"[bench-ray] {tag}: sass ray_hits_kernel: face loop {n} instructions for {pairs} "
+          f"pair(s) a thread; filter path {sum(keep.values()) / pairs:.2f} instructions a pair, "
+          f"{fp64 / pairs:.2f} of them FP64 ({top}); skipped regions (queue and exact path) "
+          f"{sum(drop.values())} instructions ({', '.join(f'{o} {c}' for o, c in drop.most_common(6))})",
+          flush=True)
+
+
+# eight independent chains of one FP64 operation a thread, for the rate the
+# card's FP64 pipe reaches
+FP64_RATE_SOURCE = r"""
+#include <cuda_runtime.h>
+template <int OP>
+__global__ void fp64_rate(double* out, int iters) {
+  double a[8];
+  for (int k = 0; k < 8; ++k) a[k] = 1.0 + threadIdx.x * 1e-9 + k;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (OP == 0) a[k] = __dmul_rn(a[k], 1.0000001);
+      else if (OP == 1) a[k] = __dadd_rn(a[k], 1e-12);
+      else a[k] = __fma_rn(a[k], 1.0000001, 1e-12);
+    }
+  }
+  double s = 0.0;
+  for (int k = 0; k < 8; ++k) s += a[k];
+  if (s == 12345.0) out[0] = s;
+}
+extern "C" int mm_fp64_rate(int op, double* out, int blocks, int threads, int iters) {
+  if (op == 0) fp64_rate<0><<<blocks, threads>>>(out, iters);
+  else if (op == 1) fp64_rate<1><<<blocks, threads>>>(out, iters);
+  else fp64_rate<2><<<blocks, threads>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def bench_fp64_rate(torch, tag, iters=20000):
+    """FP64 operations a clock an SM that the card reaches on eight
+    independent chains a thread (DMUL, DADD, DFMA; 8 blocks of 128 threads
+    an SM), by CUDA events, against the 64 lanes of ray_bound."""
+    import ctypes
+
+    from chip_smoke import MAX_SM_CLOCK_HZ, card_state
+
+    from multimodars_torch.ops import _cuda_build
+
+    _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = _cuda_build.BUILD_DIR / "fp64_rate.cu"
+    source.write_text(FP64_RATE_SOURCE)
+    lib = _cuda_build.load(source, "fp64_rate")
+    lib.mm_fp64_rate.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int]
+    out = torch.zeros(1, dtype=torch.float64, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads = 8 * sms, 128
+    for op, name in enumerate(("DMUL", "DADD", "DFMA")):
+        assert lib.mm_fp64_rate(op, out.data_ptr(), blocks, threads, 100) == 0
+        ms = events_ms(torch, lambda: lib.mm_fp64_rate(op, out.data_ptr(), blocks, threads, iters),
+                       calls=1, windows=5)
+        per_clock = blocks * threads * iters * 8 / (ms * 1e-3) / (sms * MAX_SM_CLOCK_HZ)
+        print(f"[bench-fp64] {tag}: {name}: {ms:.4f} ms, {per_clock:.1f} operations a clock an "
+              f"SM at {MAX_SM_CLOCK_HZ / 1e6:.0f} MHz (card after: {card_state()})", flush=True)
+
+
+def bench_ray(torch, tag, rays, runs=11):
     import numpy as np
 
-    from chip_smoke import card_state, ccta_case, ccta_run, recorded_rays
+    from chip_smoke import card_state
 
     import multimodars_torch as mt
     from multimodars_torch.ccta import kernels as ck
 
-    with recorded_rays() as rays:
-        ccta_run(torch, mt, ccta_case(mt))
-    origins, directions, tri = rays[0]
+    origins, directions, tri = rays
     saved = ck._RAY_NATIVE_THRESHOLD
 
     def route_ms(threshold, o, d, t):
-        ck._RAY_NATIVE_THRESHOLD = threshold
+        ck._RAY_NATIVE_THRESHOLD = {"cuda": threshold, "cpu": threshold}
         ck.ray_occlusion(o, d, t)
         times = []
         for _ in range(runs):
@@ -454,8 +634,10 @@ def main() -> int:
     ap.add_argument("--only-morph", action="store_true",
                     help="with --family ccta: the morph-sweep shapes alone")
     ap.add_argument("--sass", action="store_true",
-                    help="with --family ccta: instructions per pair of the kernels' inner "
-                         "loops (cuobjdump -sass)")
+                    help="with --family ccta or ray: instructions per pair of the kernels' "
+                         "inner loops (cuobjdump -sass)")
+    ap.add_argument("--only-kernel", action="store_true",
+                    help="with --family ray: the ray kernel alone, not the two routes")
     args = ap.parse_args()
 
     import numpy as np
@@ -481,7 +663,13 @@ def main() -> int:
         bench_ccta_wall(torch, tag)
         return 0
     if args.family == "ray":
-        bench_ray(torch, tag)
+        rays = phase8_rays(torch)
+        bench_ray_kernel(torch, np, tag, rays)
+        if args.sass:
+            report_ray_sass(tag)
+            bench_fp64_rate(torch, tag)
+        if not args.only_kernel:
+            bench_ray(torch, tag, rays)
         return 0
     if args.family == "ccta":
         if not args.only_morph:

@@ -841,6 +841,78 @@ def test_ray_kernel_matches_plain(cuda, R, F):
         assert int(rt.views(got)[0].sum()) > 0 or R < 10
 
 
+@pytest.mark.parametrize("R, F", [(1, 1), (127, 255), (128, 256), (129, 257), (1000, 5000),
+                                  (300, 37905)])
+def test_ray_kernel_matches_plain_and_kernel_order(cuda, R, F):
+    """Ragged ray groups and face splits: the kernel equals plain and the
+    emulation of its work decomposition at the launch's plan, bit for bit,
+    in one launch."""
+    from multimodars_torch.ops import ray_triangle as rt
+
+    o, d, tris = _ray_case(R, F, seed=7 * R + F)
+    args = [torch.tensor(x, dtype=torch.float64, device=cuda) for x in (o, d, tris)]
+    launches = rt.launches
+    got = rt.ray_hits(*args)
+    assert rt.launches == launches + 1
+    want = rt.ray_hits_plain(*args)
+    ordered, exact = rt.ray_hits_ordered(*args, rt.launch_plan(R, F, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(ordered, want)
+    assert 0 <= exact <= R * F
+
+
+def _adversarial_args(device):
+    import chip_smoke
+
+    with np.errstate(all="ignore"):
+        case = chip_smoke.adversarial_ray_case(np)
+    return [torch.tensor(x, dtype=torch.float64, device=device) for x in case]
+
+
+@pytest.mark.parametrize("per_split", [None, 64, 16, 4, 3, 1])
+def test_ray_kernel_on_adversarial_rays(cuda, monkeypatch, per_split):
+    """The adversarial rays (u, v at 0 and 1 and one ulp off, |a| at 1e-8
+    and past 2^900, un underflowing, u = -0.0, degenerate faces, a fan's
+    vertex, huge faces) equal plain on the card and on the CPU bit for bit,
+    at the card's plan and at face splits that give one merge level (64,
+    16 faces) or two (4, 3, 1)."""
+    from multimodars_torch.ops import ray_triangle as rt
+
+    args = _adversarial_args(cuda)
+    R, F = len(args[0]), len(args[2])
+    if per_split is not None:
+        p = rt.Plan(-(-R // rt.RAYS_PER_BLOCK), -(-F // per_split), per_split, 1)
+        monkeypatch.setattr(rt, "launch_plan", lambda n, m, device: p)
+    got = rt.ray_hits(*args)
+    want = rt.ray_hits_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), rt.ray_hits_plain(*(a.cpu() for a in args)))
+    assert int((rt.views(got)[0] > 0).sum()) > 100
+
+
+def test_ray_kernel_scratch_resets_between_launches(cuda):
+    """Repeated launches, a launch that grows the scratch, and a launch on
+    another stream give the same answers: the kernel leaves its tickets at
+    0."""
+    from multimodars_torch.ops import ray_triangle as rt
+
+    small = [torch.tensor(x, dtype=torch.float64, device=cuda) for x in _ray_case(200, 3000, seed=3)]
+    big = [torch.tensor(x, dtype=torch.float64, device=cuda) for x in _ray_case(1000, 9000, seed=4)]
+    want_small, want_big = rt.ray_hits_plain(*small), rt.ray_hits_plain(*big)
+    launches = rt.launches
+    outs = [rt.ray_hits(*small), rt.ray_hits(*small), rt.ray_hits(*big), rt.ray_hits(*small)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs.append(rt.ray_hits(*small))
+    side.synchronize()
+    torch.cuda.synchronize()
+    assert rt.launches == launches + 5
+    for out, want in zip(outs, (want_small, want_small, want_big, want_small, want_small)):
+        assert torch.equal(out, want)
+
+
 def test_occlusion_rays_take_the_kernel_on_the_card_above_the_threshold(cuda):
     """On the card the occlusion pass's rays take the kernel in one launch
     above the threshold and the native grid DDA at or below it, with the
