@@ -89,6 +89,17 @@ Phases:
    occlusion pass's two routes on those rays timed whole; then the ray
    kernel on seeded adversarial rays (``adversarial_ray_case``), bit for
    bit against plain
+10. the ``ops`` surface on the card: ``ops.hausdorff_sq_masked`` on
+    OCT-280's 279 consecutive pairs in f32 and f64, with all-valid masks and
+    with a seeded mask that empties whole sets (bit for bit the plain version
+    on the same tensors, f64 also the CPU run), and at the refine's grid
+    (``p [5, 31, 11200, 2]`` against ``q [5, 1, 11178, 2]`` from phase 6:
+    bit for bit phase 6's table), one refine kernel launch a call counted;
+    ``ops.multires_rotation_search``, ``ops.search_range_batched`` and
+    ``ops.rotation_cost_table`` in f64 at step 0.01 deg / range 6 deg (the
+    last two on the ladder's last window), sweep launches counted, the same
+    grid angles and tie flags as the CPU run on every 14th pair; kernel,
+    plain and ``torch.cdist`` composition ms, bound and share
 
 Every phase prints its lines; any failure exits non-zero.  The line before
 the last is the kernel summary JSON, the last line is
@@ -1208,7 +1219,8 @@ def phase_centerline(torch, hb, mt, pair_ab, profile=False):
         profile_main_path(torch, combined, "align_combined_profile.json")
     return launches, sweep_launches, dict(
         max_abs_err=max(r[0] for r in res), ms=res[0][1], plain_ms=res[0][2],
-        bound_ms=res[0][3][0], bound_by=res[0][3][1])
+        bound_ms=res[0][3][0], bound_by=res[0][3][1]), {
+            torch.float32: tables32[0], torch.float64: tables64[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -2518,6 +2530,159 @@ def phase_mesh(torch, mt, ccta_state):
     origins, directions, tri = rays[0]
     row = check_ray_call(torch, origins, directions, tri, "phase 8's rays")
     return ray_launches, row
+
+
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+# the seeded mask of the public Hausdorff's second run: ~5% of the slots
+# invalid and this many whole sets empty
+OPS_MASK_SEED = 29
+OPS_EMPTY_SETS = 5
+# the pairs the CPU float64 run of the public searches takes (every 14th of
+# OCT-280's 279; the card takes all of them)
+OPS_CPU_PAIRS = slice(0, 279, 14)
+
+
+def cdist_hausdorff_sq(torch, p, q, pmask, qmask):
+    """The masked squared Hausdorff as ``torch.cdist(p, q).pow(2)`` and
+    masked ``amin`` / ``amax``: a yardstick of library calls (not one call,
+    and not exact: cdist may take the matrix-product form)."""
+    d2 = torch.cdist(p, q).pow(2)
+    inf = torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device)
+    fwd = torch.where(pmask, torch.where(qmask[:, None, :], d2, inf).amin(-1), -inf).amax(-1)
+    bwd = torch.where(qmask, torch.where(pmask[:, :, None], d2, inf).amin(-2), -inf).amax(-1)
+    h = torch.maximum(fwd, bwd)
+    return torch.where(pmask.any(-1) & qmask.any(-1), h, torch.zeros_like(h))
+
+
+def phase_ops(torch, refine_inputs):
+    """The ``ops`` surface on the card: the public masked Hausdorff on
+    OCT-280's 279 consecutive pairs (f32 and f64, all-valid and seeded
+    masks) and at the refine's grid, and the three public searches in f64,
+    each against its plain version or the CPU.  Returns (sweep launches,
+    refine kernel launches) of the counted run."""
+    import numpy as np
+
+    from multimodars_torch import ops
+    from multimodars_torch.ops import hausdorff_batch as hb
+    from multimodars_torch.ops import rotation_search as rs
+    from multimodars_torch.ops import sweep
+    from multimodars_torch.ops.hausdorff import hausdorff_sq_masked_plain
+
+    dev = torch.device("cuda", 0)
+    pts = np.ascontiguousarray(oct_sample_sets())
+    rng = np.random.default_rng(OPS_MASK_SEED)
+    seeded = rng.random(pts.shape[:2]) > 0.05
+    seeded[rng.choice(len(pts), OPS_EMPTY_SETS, replace=False)] = False
+    pair_inputs = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        t = torch.as_tensor(pts, dtype=dtype, device=dev)
+        for label, mask in (("all valid", np.ones(pts.shape[:2], bool)),
+                            (f"seeded mask, {OPS_EMPTY_SETS} sets empty", seeded)):
+            m = torch.as_tensor(mask, device=dev)
+            pair_inputs[(tag, label)] = (t[1:], t[:-1], m[1:], m[:-1])
+    # the refine's grid: p [S, K, n, 2] against q [S, 1, m, 2]
+    grid_inputs = {}
+    for dtype, ((p, pmask, q, qmask), K) in refine_inputs.items():
+        S = q.shape[0]
+        grid_inputs[dtype] = (
+            torch.as_tensor(p, dtype=dtype, device=dev).reshape(S, K, *p.shape[1:]),
+            torch.as_tensor(q, dtype=dtype, device=dev)[:, None],
+            torch.as_tensor(pmask, device=dev).reshape(S, K, p.shape[1]),
+            torch.as_tensor(qmask, device=dev)[:, None], K)
+    test, ref, tm, rm = pair_inputs[("f64", "all valid")]
+
+    # the counted run: every launch count set to 0 just before it
+    hb.launches = sweep.launches = 0
+    pair_out = {key: ops.hausdorff_sq_masked(*args) for key, args in pair_inputs.items()}
+    grid_out = {dtype: ops.hausdorff_sq_masked(*args[:4]) for dtype, args in grid_inputs.items()}
+    best, tie = ops.multires_rotation_search(test, ref, tm, rm, STEP_DEG, RANGE_DEG)
+    last = (STEP_DEG, 10.0 * STEP_DEG, best, RANGE_DEG)
+    s_best, s_tie = ops.search_range_batched(test, ref, tm, rm, *last)
+    angles, valid = rs.candidate_angles(best, STEP_DEG, 10.0 * STEP_DEG, RANGE_DEG)
+    table = ops.rotation_cost_table(test, ref, tm, rm, angles, valid)
+    torch.cuda.synchronize()
+    hb_launches, sweep_launches = hb.launches, sweep.launches
+    calls = len(pair_out) + len(grid_out)
+    say("ops", f"counted run: {calls} public hausdorff_sq_masked calls, refine kernel "
+               f"launches {hb_launches}; 3 public searches f64, sweep launches "
+               f"{sweep_launches}")
+    check(hb_launches == calls,
+          f"{calls} public Hausdorff calls on the card made {hb_launches} kernel launches")
+    check(sweep_launches > 0, "the public searches launched no sweep kernel")
+
+    # the public Hausdorff on the pairs: = plain on the card, f64 = CPU
+    for (tag, label), args in pair_inputs.items():
+        got = pair_out[(tag, label)].double().cpu().numpy()
+        want = hausdorff_sq_masked_plain(*args).double().cpu().numpy()
+        err = float(np.abs(got - want).max())
+        line = (f"public hausdorff_sq_masked {tag} {list(args[0].shape)} x "
+                f"{list(args[1].shape)}, {label}: max |kernel-plain| {err:.3e}, "
+                f"{int((got == 0).sum())} zero entries")
+        check(err == 0.0, f"public Hausdorff {tag} {label} differs from plain")
+        if tag == "f64":
+            cpu = ops.hausdorff_sq_masked(*(a.cpu() for a in args)).numpy()
+            same = bool(np.array_equal(got, cpu))
+            line += f"; equal to the f64 CPU run bit for bit {same}"
+            check(same, f"public Hausdorff f64 {label}: card differs from the CPU")
+        ms = cuda_ms(torch, lambda: ops.hausdorff_sq_masked(*args), 5)
+        plain_ms = cuda_ms(torch, lambda: hausdorff_sq_masked_plain(*args), 1)
+        lib_ms = cuda_ms(torch, lambda: cdist_hausdorff_sq(torch, *args), 5)
+        p, q, pm, qm = args
+        bound, by = refine_bound(torch, p, pm, q, qm, 1)
+        say("ops", f"{line}; kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                   f"{100.0 * bound / ms:.1f}% of bound, plain {plain_ms:.3f} ms, "
+                   f"cdist composition (not one call) {lib_ms:.3f} ms "
+                   f"(card after: {card_state()})")
+
+    # the refine's grid through the public name: = phase 6's table
+    for dtype, (p4, q4, pm3, qm3, K) in grid_inputs.items():
+        tag = "f32" if dtype == torch.float32 else "f64"
+        S, n, m = p4.shape[0], p4.shape[2], q4.shape[2]
+        flat = (p4.reshape(S * K, n, 2), pm3.reshape(S * K, n), q4[:, 0], qm3[:, 0])
+        want = hb.hausdorff_sq_shared_ref(*flat, K)
+        got = grid_out[dtype]
+        same = bool(torch.equal(got.reshape(-1), want))
+        ms = cuda_ms(torch, lambda: ops.hausdorff_sq_masked(p4, q4, pm3, qm3), 5)
+        table_ms = cuda_ms(torch, lambda: hb.hausdorff_sq_shared_ref(*flat, K), 5)
+        bound, by = refine_bound(torch, *flat, K)
+        say("ops", f"public hausdorff_sq_masked {tag} refine grid p [{S}, {K}, {n}, 2] "
+                   f"x q [{S}, 1, {m}, 2] -> {tuple(got.shape)}: equal to phase 6's "
+                   f"table bit for bit {same}; public {ms:.3f} ms, table {table_ms:.3f} ms, "
+                   f"bound {bound:.3f} ms ({by}), {100.0 * bound / ms:.1f}% of bound "
+                   f"(card after: {card_state()})")
+        check(same, f"public Hausdorff {tag} on the refine grid differs from the table")
+
+    # the public searches: the card's grid angles and flags = the CPU's
+    rows = OPS_CPU_PAIRS
+    cpu = [a[rows].cpu() for a in (test, ref, tm, rm)]
+    c_best, c_tie = ops.multires_rotation_search(*cpu, STEP_DEG, RANGE_DEG)
+    c_sbest, c_stie = ops.search_range_batched(*cpu, STEP_DEG, 10.0 * STEP_DEG, c_best,
+                                               RANGE_DEG)
+    c_angles, c_valid = rs.candidate_angles(c_best, STEP_DEG, 10.0 * STEP_DEG, RANGE_DEG)
+    c_table = ops.rotation_cost_table(*cpu, c_angles, c_valid).numpy()
+    k_table = table[rows].cpu().numpy()
+    fin = np.isfinite(c_table)
+    rel = float((np.abs(k_table[fin] - c_table[fin]) / c_table[fin]).max())
+    checks = {
+        "multires_rotation_search angles": torch.equal(best[rows].cpu(), c_best),
+        "multires_rotation_search flags": torch.equal(tie[rows].cpu(), c_tie),
+        "search_range_batched angles": torch.equal(s_best[rows].cpu(), c_sbest),
+        "search_range_batched flags": torch.equal(s_tie[rows].cpu(), c_stie),
+        "rotation_cost_table argmins": bool(
+            (k_table.argmin(1) == c_table.argmin(1)).all()
+            and (np.isinf(k_table) == np.isinf(c_table)).all()),
+        "rotation_cost_table rel <= 1e-12": rel <= 1e-12,
+    }
+    say("ops", f"public searches f64 (step {STEP_DEG} deg, range {RANGE_DEG} deg; the "
+               f"last stage's window K {angles.shape[1]}) on the card against the CPU on "
+               f"{len(c_best)} of {len(test)} pairs: {checks}; flagged on the card "
+               f"{int(tie.sum())} / {int(s_tie.sum())}; cost table max rel {rel:.3e}")
+    for name, ok in checks.items():
+        check(ok, f"public searches: {name} differ between the card and the CPU")
+    return sweep_launches, hb_launches
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2567,7 +2732,7 @@ def main() -> int:
             kres["max_abs_err"], phase_full_kernel(torch, sweep, rs, mt, clouds[:2])
         )
         phase_full_cross_device(torch, mt)
-        hb_launches, chain_launches, hres = phase_centerline(
+        hb_launches, chain_launches, hres, refine_inputs = phase_centerline(
             torch, hb, mt, pair_ab, args.profile)
         launches += chain_launches
         cohort_launches, err = phase_cohort(torch, sweep, rs, mt, args.profile)
@@ -2577,6 +2742,9 @@ def main() -> int:
         mesh_ray_launches, rres = phase_mesh(torch, mt, ccta_state)
         # phase 8's counted run and phase 9's three counted runs
         ray_launches = ccta_launches["ray_triangle"] + mesh_ray_launches
+        ops_sweep_launches, ops_hb_launches = phase_ops(torch, refine_inputs)
+        launches += ops_sweep_launches
+        hb_launches += ops_hb_launches
     rres["max_abs_err"] = max(rres["max_abs_err"], adversarial_ray_call(torch)["max_abs_err"])
     for name in sorted(sys.modules):
         if name == "jax" or name.startswith(("jax.", "multimodars_tpu")):

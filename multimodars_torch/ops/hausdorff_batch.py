@@ -8,7 +8,9 @@ reference set ``q[c // K]`` of ``q [S, m, 2]`` (mask ``qmask [S, m]``,
 0 where either set is empty: the value of
 ``hausdorff_sq_masked(q[c // K], p[c], qmask[c // K], pmask[c])``.  The
 centerline refine evaluates its (shift x angle) grid with it, K angle
-candidates against each shift's filtered CCTA cloud.
+candidates against each shift's filtered CCTA cloud; the public
+``ops.hausdorff_sq_masked`` reaches it on CUDA tensors, one candidate per
+reference set (K = 1) or K along the leading axis its ``q`` broadcasts on.
 
 :func:`hausdorff_sq_shared_ref` dispatches on the device of its inputs: a
 CPU tensor goes to :func:`hausdorff_sq_shared_ref_plain`, a CUDA tensor to
@@ -25,7 +27,7 @@ import ctypes
 import torch
 
 from . import _cuda_build
-from .hausdorff import hausdorff_sq_masked
+from .hausdorff import hausdorff_sq_masked_plain
 
 #: kernel launches made by :func:`hausdorff_sq_shared_ref` in this process
 launches = 0
@@ -42,9 +44,9 @@ _lib = None
 
 
 def hausdorff_sq_shared_ref_plain(p, pmask, q, qmask, K: int):
-    """The table as ``hausdorff_sq_masked`` over chunks of candidates (any
-    device).  Each chunk gathers its own reference sets, so ``q`` is never
-    broadcast to ``C`` copies; peak memory is a few temporaries of
+    """The table as ``hausdorff_sq_masked_plain`` over chunks of candidates
+    (any device).  Each chunk gathers its own reference sets, so ``q`` is
+    never broadcast to ``C`` copies; peak memory is a few temporaries of
     ``max(2**24, n * m)`` elements."""
     C, n = p.shape[0], p.shape[1]
     m = q.shape[1]
@@ -55,7 +57,7 @@ def hausdorff_sq_shared_ref_plain(p, pmask, q, qmask, K: int):
     for c0 in range(0, C, G):
         c1 = min(C, c0 + G)
         s = torch.arange(c0, c1, device=p.device) // int(K)
-        chunks.append(hausdorff_sq_masked(q[s], p[c0:c1], qmask[s], pmask[c0:c1]))
+        chunks.append(hausdorff_sq_masked_plain(q[s], p[c0:c1], qmask[s], pmask[c0:c1]))
     return torch.cat(chunks)
 
 

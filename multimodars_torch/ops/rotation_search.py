@@ -46,9 +46,17 @@ def rotation_cost_table(test, ref, test_mask, ref_mask, angles, angles_valid,
     test: [F, N, 2], ref: [F, M, 2] (centered on the rotation pivot);
     angles/angles_valid: [F, K].  Returns costs [F, K] with +inf at invalid
     slots."""
+    test, ref, test_mask, ref_mask, angles, angles_valid = _contiguous(
+        test, ref, test_mask, ref_mask, angles, angles_valid)
     return sweep.cost_table(
         test, ref, test_mask, ref_mask, angles, angles_valid, dense=dense
     )
+
+
+def _contiguous(*tensors):
+    """The tensors in row-major order (the kernel takes no other strides;
+    a tensor already so is returned as it is), ``None`` kept."""
+    return tuple(None if t is None else t.contiguous() for t in tensors)
 
 
 def candidate_angles(centers, step_deg: float, range_deg: float, limes_deg: float):
@@ -145,6 +153,7 @@ def search_range_batched(
     """
     if step_deg <= 0.0:
         return centers, torch.zeros(centers.shape, dtype=torch.bool, device=centers.device)
+    test, ref, test_mask, ref_mask = _contiguous(test, ref, test_mask, ref_mask)
     angles, valid = candidate_angles(
         centers.to(torch.float64), step_deg, range_deg, limes_deg
     )
@@ -426,6 +435,7 @@ def multires_rotation_search(
     test/ref: [F, N|M, 2] centered point sets; masks [F, N|M] (ignored when
     ``dense``).  Returns ``(best [F], tie [F])``: best angles in radians plus
     the argmin-certification flags."""
+    test, ref, test_mask, ref_mask = _contiguous(test, ref, test_mask, ref_mask)
     best, tie, _te, _tf, _c = _multires_rotation_search_impl(
         test, ref, test_mask, ref_mask, float(step_deg), float(range_deg),
         _resolve_plan(step_deg, range_deg, bruteforce), dense=dense,

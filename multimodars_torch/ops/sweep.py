@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _cuda_build
-from .hausdorff import directed_sq, hausdorff_sq_dense, hausdorff_sq_masked
+from .hausdorff import directed_sq, hausdorff_sq_dense, hausdorff_sq_masked_plain
 
 #: kernel launches made by :func:`cost_table` in this process
 launches = 0
@@ -102,7 +102,7 @@ def cost_table_plain(
             if dense:
                 cost = hausdorff_sq_dense(rot, ref[None])
             else:
-                cost = hausdorff_sq_masked(
+                cost = hausdorff_sq_masked_plain(
                     rot, ref[None], test_mask[None], ref_mask[None]
                 )
         else:

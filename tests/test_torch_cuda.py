@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written sweep kernel
 against its plain version (at the single path's and the between search's
 shapes), the centerline refine's Hausdorff kernel against its plain version
-and against numpy's float64 table, the CCTA kernels (radius count, nearest
+and against numpy's float64 table, and through the public
+``ops.hausdorff_sq_masked``, the CCTA kernels (radius count, nearest
 pick, batched morph sweep) against theirs, and the single-pullback,
 four-phase, centerline and CCTA paths on CUDA against the CPU path.  They skip where
 ``torch.cuda.is_available()`` is false.
@@ -378,6 +379,82 @@ def test_hausdorff_kernel_refuses_what_it_cannot_take(cuda):
         hb.hausdorff_sq_shared_ref(args[0], args[1].cpu(), args[2], args[3], 2)
     with pytest.raises(ValueError, match="reference sets"):
         hb.hausdorff_sq_shared_ref(*args, 3)
+
+
+@pytest.mark.parametrize("layout", ["pairs", "refine", "3-D points"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_public_hausdorff_launches_the_refine_kernel(cuda, dtype, layout):
+    """``ops.hausdorff_sq_masked`` on CUDA tensors: one refine kernel launch
+    a call, equal bit for bit to the plain version on the same tensors, with
+    an empty set on either side; its distance is the square root."""
+    from multimodars_torch import ops
+    from multimodars_torch.ops.hausdorff import hausdorff_sq_masked_plain
+
+    S, K = 3, 5
+    p, pmask, q, qmask = _refine_case(S, K, 300, 420, seed=7)
+    if layout == "pairs":  # one candidate a reference set
+        p, pmask = p[::K], pmask[::K]
+        pmask[0] = False
+    elif layout == "refine":  # [S, K, n] against [S, 1, m]
+        p, pmask = p.reshape(S, K, 300, 2), pmask.reshape(S, K, 300)
+        q, qmask = q[:, None], qmask[:, None]
+    else:  # x, y, z points: x and y are used
+        p, pmask = p[::K], pmask[::K]
+        p = np.concatenate([p, np.ones(p.shape[:-1] + (1,))], -1)
+        q = np.concatenate([q, np.full(q.shape[:-1] + (1,), -3.0)], -1)
+    args = (torch.tensor(p, dtype=dtype, device=cuda), torch.tensor(q, dtype=dtype, device=cuda),
+            torch.tensor(pmask, device=cuda), torch.tensor(qmask, device=cuda))
+    launches = hb.launches
+    got = ops.hausdorff_sq_masked(*args)
+    assert hb.launches == launches + 1
+    want = hausdorff_sq_masked_plain(args[0][..., :2], args[1][..., :2], *args[2:])
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert (got.reshape(-1) == 0).any()
+    dist = ops.hausdorff_distance_masked(*args)
+    assert hb.launches == launches + 2
+    assert torch.equal(dist, torch.sqrt(got))
+
+
+def test_public_searches_take_any_strides(cuda):
+    """The public searches on transposed views (as the build funnel's sample
+    sets are laid out) give the bits of their contiguous copies, on the
+    sweep kernel."""
+    from multimodars_torch import ops
+
+    test, ref, tmask, rmask = _sets(F=5, N=200, M=190, seed=3)
+    views = [torch.tensor(np.ascontiguousarray(a.swapaxes(0, 1)), device=cuda).transpose(0, 1)
+             for a in (test, ref, tmask, rmask)]
+    assert not views[0].is_contiguous()
+    dense = [v.contiguous() for v in views]
+    launches = sweep.launches
+    got = ops.multires_rotation_search(*views, 0.01, 6.0)
+    assert sweep.launches > launches
+    want = ops.multires_rotation_search(*dense, 0.01, 6.0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    centers = got[0]
+    got = ops.search_range_batched(*views, 0.01, 0.1, centers, 6.0)
+    want = ops.search_range_batched(*dense, 0.01, 0.1, centers, 6.0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    angles, valid = rs.candidate_angles(centers, 0.01, 0.1, 6.0)
+    got = ops.rotation_cost_table(*views, angles, valid)
+    assert torch.equal(got, ops.rotation_cost_table(*dense, angles, valid))
+
+
+def test_public_hausdorff_refuses_what_the_kernel_cannot_take(cuda):
+    """Integer points, or masks on another device, raise on the card: no
+    plain version stands in."""
+    from multimodars_torch import ops
+
+    p = torch.zeros((2, 4, 2), dtype=torch.int32, device=cuda)
+    mask = torch.ones((2, 4), dtype=torch.bool, device=cuda)
+    launches = hb.launches
+    with pytest.raises(ValueError, match="float32 or float64"):
+        ops.hausdorff_sq_masked(p, p, mask, mask)
+    with pytest.raises(ValueError, match="expected cuda"):
+        ops.hausdorff_sq_masked(p.double(), p.double(), mask.cpu(), mask)
+    assert hb.launches == launches
 
 
 def _centerline_case():
