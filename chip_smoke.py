@@ -45,7 +45,9 @@ Phases:
    (shift, angle) winner, coordinates within 1e-4 mm, the f64 kernel table
    of the winner's shift equal bit for bit to numpy's, ``align_three_point``
    equal on CUDA and the CPU, the refine kernel against plain at its real
-   shapes, wall clock (median of 5 after 2 warm-ups) and spans
+   shapes (with its device time, launch plan and both bounds: 7 operations
+   a valid unordered pair, and the 5 a directed pair of earlier checkouts),
+   wall clock (median of 5 after 2 warm-ups) and spans
 7. the cohort entry on the card: ``from_array_cohort`` on 16 OCT-280
    pullbacks (4464 pairs in one batch) at step 0.5 deg / range 90 deg in
    f32: the same grid angle in every pair as ``from_array_single`` per
@@ -98,8 +100,10 @@ Phases:
     ``ops.multires_rotation_search``, ``ops.search_range_batched`` and
     ``ops.rotation_cost_table`` in f64 at step 0.01 deg / range 6 deg (the
     last two on the ladder's last window), sweep launches counted, the same
-    grid angles and tie flags as the CPU run on every 14th pair; kernel,
-    plain and ``torch.cdist`` composition ms, bound and share
+    grid angles and tie flags as the CPU run on every 14th pair; kernel
+    ms by events and device ms a launch (torch.profiler), plain and
+    ``torch.cdist`` composition ms, bound and share, and the refine
+    kernel's launch plan (blocks, waves, registers, spills)
 
 Every phase prints its lines; any failure exits non-zero.  The line before
 the last is the kernel summary JSON, the last line is
@@ -183,6 +187,43 @@ def cuda_ms(torch, fn, reps):
     return sorted(times)[1]
 
 
+def device_ms(torch, fn, name, calls=20):
+    """Device ms a launch of the kernels whose name holds ``name``: the
+    mean of torch.profiler's device-side events over ``calls`` calls after
+    a warm-up call (the kernel's own time, without the host's; the tracer
+    may drop a window's first events, so it averages the launches seen)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if name in evt.key:
+            got = getattr(evt, "device_time_total", None)
+            total += evt.cuda_time_total if got is None else got
+            count += evt.count
+    check(count > 0, f"the profiler saw no {name} kernel")
+    return total / 1e3 / count
+
+
+def refine_plan_line(torch, hb, p, q):
+    """The refine kernel's launch plan for candidates ``p`` against
+    reference sets ``q`` on the card, with the variant's registers, spills
+    and resident blocks as the card reports them."""
+    dev = p.device
+    plan = hb.launch_plan(p.shape[0], p.shape[1], q.shape[1], p.element_size(), dev)
+    info = hb.kernel_info(dev, p.element_size())[plan.rows_per_thread]
+    return (f"plan {plan.blocks} blocks of {plan.warps} warps in {plan.waves} wave(s) of "
+            f"{plan.slots}: {plan.tiles} row tile(s) x {plan.splits} column split(s), R "
+            f"{plan.rows_per_thread}, rows from {'q' if plan.swap else 'p'}; "
+            f"{info['registers']} registers, {info['local_bytes']} spilled bytes a thread, "
+            f"{info['blocks_per_sm'][plan.warps - 1]} resident blocks an SM")
+
+
 def card_state():
     """The card's SM clock, power draw and temperature now, as nvidia-smi
     reads them: printed beside kernel times taken just before."""
@@ -206,13 +247,18 @@ FP_LANES_PER_SM = {4: 128, 8: 64}
 # one directed point pair: dx, dy (2 sub), dy*dy (1 mul), dx*dx + that
 # (1 FMA), the running min (1)
 OPS_PER_PAIR = 5
+# one unordered pair of the refine table, whose d2 serves both directions:
+# dx, dy (2 sub), dx*dx, dy*dy (2 mul), their sum (1 add; unfused, so that
+# d2 equals numpy's), the row's min and the column's min (2)
+OPS_PER_REFINE_PAIR = 7
 
 
-def bound_ms(torch, pairs, elem_size, nbytes):
-    """(bound in ms, "operations" or "bytes") of ``pairs`` directed point
-    pairs in points of ``elem_size`` bytes, moving ``nbytes``."""
+def bound_ms(torch, pairs, elem_size, nbytes, ops=OPS_PER_PAIR):
+    """(bound in ms, "operations" or "bytes") of ``pairs`` point pairs of
+    ``ops`` operations each in points of ``elem_size`` bytes, moving
+    ``nbytes``."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ops_s = OPS_PER_PAIR * pairs / (sms * FP_LANES_PER_SM[elem_size] * MAX_SM_CLOCK_HZ)
+    ops_s = ops * pairs / (sms * FP_LANES_PER_SM[elem_size] * MAX_SM_CLOCK_HZ)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
 
@@ -236,15 +282,27 @@ def sweep_bound(torch, args, kw):
     return bound_ms(torch, int(pairs), e, nbytes)
 
 
-def refine_bound(torch, p, pmask, q, qmask, K):
-    """The bound of one refine table: both directions over every valid
-    (candidate point, cloud point) pair, none for an empty set."""
+def _refine_pairs_bytes(p, pmask, q, qmask, K):
     nv = pmask.sum(1)
     mv = qmask.sum(1).repeat_interleave(K)
-    pairs = int((2 * nv * mv).sum())
     e = p.element_size()
     nbytes = (p.numel() + q.numel()) * e + pmask.numel() + qmask.numel() + p.shape[0] * e
-    return bound_ms(torch, pairs, e, nbytes)
+    return int((nv * mv).sum()), nbytes
+
+
+def refine_bound(torch, p, pmask, q, qmask, K):
+    """The bound of one refine table: every valid (candidate point, cloud
+    point) pair once, at 7 operations (its d2 serves both directions), none
+    for an empty set."""
+    pairs, nbytes = _refine_pairs_bytes(p, pmask, q, qmask, K)
+    return bound_ms(torch, pairs, p.element_size(), nbytes, OPS_PER_REFINE_PAIR)
+
+
+def refine_bound_directed(torch, p, pmask, q, qmask, K):
+    """The bound as earlier checkouts stated it: both directions of every
+    valid pair, 5 operations each (10 a pair, where the function needs 7)."""
+    pairs, nbytes = _refine_pairs_bytes(p, pmask, q, qmask, K)
+    return bound_ms(torch, 2 * pairs, p.element_size(), nbytes, OPS_PER_PAIR)
 
 
 def table_name(torch, args, kw):
@@ -1057,14 +1115,20 @@ def check_refine_table(torch, hb, dtype, packed, K):
     ms = cuda_ms(torch, lambda: hb.hausdorff_sq_shared_ref(*args, K), 5)
     plain_ms = cuda_ms(torch, lambda: hb.hausdorff_sq_shared_ref_plain(*args, K), 1)
     err = float(np.abs(k_out - p_out).max())
-    pairs = 2.0 * p.shape[0] * p.shape[1] * q.shape[1]
+    pairs = 1.0 * p.shape[0] * p.shape[1] * q.shape[1]
     bound, by = refine_bound(torch, *args, K)
+    old, _ = refine_bound_directed(torch, *args, K)
+    dms = device_ms(torch, lambda: hb.hausdorff_sq_shared_ref(*args, K), "hausdorff_batch", 5)
     tag = "f32" if dtype == torch.float32 else "f64"
     say("refine", f"{tag} table [S*K {p.shape[0]}, n {p.shape[1]}, m {q.shape[1]}]: "
-                  f"kernel {ms:.3f} ms ({pairs / ms / 1e9:.2f} T point pairs/s), bound "
-                  f"{bound:.3f} ms ({by}), {100.0 * bound / ms:.1f}% of bound, plain "
-                  f"{plain_ms:.3f} ms, max |kernel-plain| {err:.3e}, "
-                  f"{int((k_out == 0).sum())} zero entries")
+                  f"kernel {ms:.3f} ms ({pairs / ms / 1e9:.2f} T point pairs/s), device "
+                  f"{dms:.3f} ms a launch, bound {bound:.3f} ms "
+                  f"({by}; 7 ops a valid pair), {100.0 * bound / ms:.1f}% of bound (the "
+                  f"5-op directed bound of earlier checkouts {old:.3f} ms, "
+                  f"{100.0 * old / ms:.1f}%), plain {plain_ms:.3f} ms, max |kernel-plain| "
+                  f"{err:.3e}, {int((k_out == 0).sum())} zero entries "
+                  f"(card after: {card_state()})")
+    say("refine", f"{tag} table: {refine_plan_line(torch, hb, args[0], args[2])}")
     check(err == 0.0, f"{tag} refine kernel differs from plain")
     return err, ms, plain_ms, (bound, by)
 
@@ -2630,12 +2694,20 @@ def phase_ops(torch, refine_inputs):
         ms = cuda_ms(torch, lambda: ops.hausdorff_sq_masked(*args), 5)
         plain_ms = cuda_ms(torch, lambda: hausdorff_sq_masked_plain(*args), 1)
         lib_ms = cuda_ms(torch, lambda: cdist_hausdorff_sq(torch, *args), 5)
+        dms = device_ms(torch, lambda: ops.hausdorff_sq_masked(*args), "hausdorff_batch")
         p, q, pm, qm = args
         bound, by = refine_bound(torch, p, pm, q, qm, 1)
-        say("ops", f"{line}; kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-                   f"{100.0 * bound / ms:.1f}% of bound, plain {plain_ms:.3f} ms, "
-                   f"cdist composition (not one call) {lib_ms:.3f} ms "
-                   f"(card after: {card_state()})")
+        old, _ = refine_bound_directed(torch, p, pm, q, qm, 1)
+        say("ops", f"{line}; kernel {ms:.4f} ms by events, device {dms:.4f} ms a launch "
+                   f"(one a call; host share of the events "
+                   f"{100.0 * max(ms - dms, 0.0) / ms:.0f}%), bound {bound:.4f} ms ({by}; 7 "
+                   f"ops a valid pair), {100.0 * bound / dms:.1f}% of bound by device time, "
+                   f"{100.0 * bound / ms:.1f}% by events (the 5-op directed bound of earlier "
+                   f"checkouts {old:.4f} ms), plain {plain_ms:.3f} ms, cdist composition "
+                   f"(not one call) {lib_ms:.3f} ms (card after: {card_state()})")
+        if label == "all valid":
+            say("ops", f"public hausdorff_sq_masked {tag} on the pairs: "
+                       f"{refine_plan_line(torch, hb, p, q)}")
 
     # the refine's grid through the public name: = phase 6's table
     for dtype, (p4, q4, pm3, qm3, K) in grid_inputs.items():
@@ -2648,10 +2720,12 @@ def phase_ops(torch, refine_inputs):
         ms = cuda_ms(torch, lambda: ops.hausdorff_sq_masked(p4, q4, pm3, qm3), 5)
         table_ms = cuda_ms(torch, lambda: hb.hausdorff_sq_shared_ref(*flat, K), 5)
         bound, by = refine_bound(torch, *flat, K)
+        old, _ = refine_bound_directed(torch, *flat, K)
         say("ops", f"public hausdorff_sq_masked {tag} refine grid p [{S}, {K}, {n}, 2] "
                    f"x q [{S}, 1, {m}, 2] -> {tuple(got.shape)}: equal to phase 6's "
                    f"table bit for bit {same}; public {ms:.3f} ms, table {table_ms:.3f} ms, "
-                   f"bound {bound:.3f} ms ({by}), {100.0 * bound / ms:.1f}% of bound "
+                   f"bound {bound:.3f} ms ({by}; 7 ops a valid pair), {100.0 * bound / ms:.1f}% "
+                   f"of bound (the 5-op directed bound of earlier checkouts {old:.3f} ms) "
                    f"(card after: {card_state()})")
         check(same, f"public Hausdorff {tag} on the refine grid differs from the table")
 

@@ -11,39 +11,63 @@
 // This is ops/hausdorff.py::hausdorff_sq_masked of the JAX package in the
 // use of pipelines/centerline_align.py::refine_alignment_hausdorff, which
 // broadcasts every shift's filtered CCTA cloud to its K angle candidates and
-// evaluates [S*K, n, m] as one XLA program.  It is not a Pallas kernel; on
+// evaluates [S*K, n, m] as one XLA program, and the public
+// ops.hausdorff_sq_masked on a CUDA tensor.  It is not a Pallas kernel; on
 // this card it needs one because its sets are far larger than the sweep
-// kernel's (csrc/sweep_cost.cu keeps both sets whole in shared memory,
-// which caps them at a few thousand points a side): a tube cloud around a
-// 56 mm coronary segment keeps ~7k-16k points after the bounding-box
-// filter, and the candidates are as many, so one call holds ~2e10 pairs and
-// the plain version's [S*K, n, m] tile would not fit on the card.
+// kernel's (csrc/sweep_cost.cu keeps both sets whole in shared memory): a
+// tube cloud around a 56 mm coronary segment keeps ~7k-16k points after the
+// bounding-box filter, and the candidates are as many, so one call holds
+// ~2e10 pairs and the plain version's [S*K, n, m] tile would not fit.
 //
-// Design.  One block owns (candidate, direction, tile of kRowsPerBlock rows
-// of its outer set): direction 0 takes rows of p[c] against q[s], direction
-// 1 rows of q[s] against p[c].  Each thread keeps kRowsPerThread rows and
-// their running minima in registers, and the block streams the inner set
-// through shared memory in fixed tiles of kTile points, so no size cap comes
-// from shared memory.  Invalid inner points are stored as (+inf, +inf),
-// whose d2 is +inf and never wins a minimum; whether the inner set has any
-// valid point at all is decided explicitly (__syncthreads_or) and a block
-// over an empty inner set contributes nothing.  The row minima reduce to a
-// block maximum, which is merged into the candidate's output with one
-// atomicMax on the bit pattern of the non-negative float (non-negative IEEE
-// values order like their bits); the wrapper zeroes the output first, so an
-// empty set on either side leaves 0.
+// What bounds it on this card: operations.  The function's least work is
+// each valid (p, q) pair once: d2 (2 subtractions, 2 multiplies, 1 add,
+// left unfused) and one min for its row and one for its column, 7
+// operations, against the 128 FP32 (64 FP64) lanes of each of the 132 SMs.
+// The sets are a few hundred KB and are read from L2, so device memory is
+// no limit.
+//
+// Design.  Each d2 is evaluated once and serves both directions.  A block
+// owns (candidate c, a tile of row groups of the row set, a split of column
+// chunks of the other set); which set takes the row side is the planner's
+// choice (ops/hausdorff_batch.py::plan_launch), since d2 has the same bits
+// either way (dx only changes sign).
+//
+//   rows: a warp owns one group of 32 R rows, R in registers a lane, with
+//     their running minima, which are complete once the block has streamed
+//     its split;
+//   columns: the split streams through shared memory in chunks of 32 units
+//     (a unit is one 16-byte load: two f32 points or one f64 point), each
+//     chunk stored twice in a row, so lane l reads unit (l + t) mod 32 at
+//     step t from address l + t with no index arithmetic.  A lane keeps the
+//     running minimum of the unit it holds over its R rows and, after each
+//     step, takes the minimum of the unit it reads next from the lane
+//     above: after 32 steps every unit's minimum has visited the 32 lanes,
+//     one shuffle a column a lane (not the 10 of a butterfly per column).
+//     The warps of the block merge their minima per column with a shared
+//     atomicMin, one per column a warp and chunk.
+//
+// Invalid rows hold (+inf, +inf) and invalid columns (-inf, -inf): d2 of
+// any pair with an invalid point is +inf (never inf - inf, which is NaN),
+// so the inner loop carries no mask, and no invalid point wins a minimum;
+// maxima read only valid points' minima.  Minima and maxima of non-negative
+// values merge as the bits of unsigned words (atomicMin / atomicMax).
+//
+// Where the row set has one tile, a block's column minima are complete and
+// it takes their maximum itself; else it merges them into a [C, cols]
+// scratch.  Where the columns have one split, its row minima are complete;
+// else they meet in a [C, rows] scratch.  Complete maxima merge into a [C]
+// word.  Each block then ORs whether its rows and its columns held a valid
+// point into the candidate's flags and takes a ticket; the candidate's last
+// block reduces the scratch over the valid points, writes out[c] (0 unless
+// both flags are set), and resets the scratch, the word, the flags and the
+// ticket to their initial state for the next launch: one launch a call, and
+// no fill of the scratch.
 //
 // d2 = (px - qx)^2 + (py - qy)^2 is evaluated with the round-to-nearest
 // intrinsics (__fsub_rn/__fmul_rn/__fadd_rn, __dsub_rn/__dmul_rn/__dadd_rn),
 // which nvcc never contracts into an FMA: every f64 d2 equals numpy's
 // dx*dx + dy*dy bit for bit, min and max are exact, so the f64 table equals
-// the host's exact f64 table.
-//
-// What bounds it on this card: instruction throughput, not device memory.  Each
-// pair costs 5 rounded operations and a compare; each inner point is read
-// once from shared memory per thread (a broadcast) and used for
-// kRowsPerThread rows.  Tensor cores, TMA and a tighter register tiling are
-// left for later work.
+// the host's exact f64 table, and the f32 table equals the plain version's.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -51,143 +75,356 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerThread = 4;
-constexpr int kRowsPerBlock = kThreads * kRowsPerThread;
-constexpr int kTile = 1024;
+constexpr int kMaxWarps = 16;
+constexpr int kMaxThreads = kMaxWarps * 32;
+constexpr int kChunk = 32;       // units a chunk: one a lane
+constexpr int kTileChunks = 16;  // chunks staged in shared memory at once
 
-template <typename T> struct Traits;
-template <> struct Traits<float> {
-  using Vec = float2;
+template <typename T> struct Tr;
+template <> struct Tr<float> {
+  using V = float4;  // one unit: two points
   using Bits = unsigned int;
+  static constexpr int kU = 2;
   static __device__ __forceinline__ float inf() { return CUDART_INF_F; }
-  static __device__ __forceinline__ float d2(float px, float py, float2 q) {
-    const float dx = __fsub_rn(px, q.x);
-    const float dy = __fsub_rn(py, q.y);
-    return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-  }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
+  static __device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
   static __device__ __forceinline__ Bits bits(float v) { return __float_as_uint(v); }
-};
-template <> struct Traits<double> {
-  using Vec = double2;
-  using Bits = unsigned long long;
-  static __device__ __forceinline__ double inf() { return CUDART_INF; }
-  static __device__ __forceinline__ double d2(double px, double py, double2 q) {
-    const double dx = __dsub_rn(px, q.x);
-    const double dy = __dsub_rn(py, q.y);
-    return __dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy));
+  static __device__ __forceinline__ float val(Bits b) { return __uint_as_float(b); }
+  static __device__ __forceinline__ void split(const V& v, float (&x)[kU], float (&y)[kU]) {
+    x[0] = v.x; y[0] = v.y; x[1] = v.z; y[1] = v.w;
   }
+  static __device__ __forceinline__ V join(const float (&x)[kU], const float (&y)[kU]) {
+    return make_float4(x[0], y[0], x[1], y[1]);
+  }
+};
+template <> struct Tr<double> {
+  using V = double2;  // one unit: one point
+  using Bits = unsigned long long;
+  static constexpr int kU = 1;
+  static __device__ __forceinline__ double inf() { return CUDART_INF; }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  // a compare and a select: fmin/fmax of doubles issue more on the FP64
+  // pipe, which bounds the f64 kernel
+  static __device__ __forceinline__ double min_(double a, double b) { return b < a ? b : a; }
+  static __device__ __forceinline__ double max_(double a, double b) { return b > a ? b : a; }
   static __device__ __forceinline__ Bits bits(double v) {
-    return (unsigned long long)__double_as_longlong(v);
+    return static_cast<Bits>(__double_as_longlong(v));
+  }
+  static __device__ __forceinline__ double val(Bits b) {
+    return __longlong_as_double(static_cast<long long>(b));
+  }
+  static __device__ __forceinline__ void split(const V& v, double (&x)[kU], double (&y)[kU]) {
+    x[0] = v.x; y[0] = v.y;
+  }
+  static __device__ __forceinline__ V join(const double (&x)[kU], const double (&y)[kU]) {
+    return make_double2(x[0], y[0]);
   }
 };
 
 template <typename T>
-__device__ __forceinline__ T warp_max(T v) {
+__device__ __forceinline__ T d2(T px, T py, T qx, T qy) {
+  const T dx = Tr<T>::sub(px, qx);
+  const T dy = Tr<T>::sub(py, qy);
+  return Tr<T>::add(Tr<T>::mul(dx, dx), Tr<T>::mul(dy, dy));
+}
+
+template <typename T> struct Params {
+  const T* p;                  // [C, n, 2]
+  const uint8_t* pm;           // [C, n]
+  const T* q;                  // [S, m, 2]
+  const uint8_t* qm;           // [S, m]
+  T* out;                      // [C]
+  typename Tr<T>::Bits* best;  // [C], 0 bits; left so
+  unsigned int* state;         // [C][2]: ticket, flags; 0; left so
+  typename Tr<T>::Bits* row_part;  // [C, rows] +inf bits when splits > 1; left so
+  typename Tr<T>::Bits* col_part;  // [C, cols] +inf bits when tiles > 1; left so
+  int C, n, m, K, swap, tiles, splits, chunks_per_split;
+  long long groups;            // row groups of 32 R rows
+};
+
+template <typename T>
+__device__ __forceinline__ T block_max(T v, T* red) {
 #pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    const T other = __shfl_xor_sync(0xffffffffu, v, offset);
-    v = other > v ? other : v;
-  }
+  for (int off = 16; off > 0; off >>= 1) v = Tr<T>::max_(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();  // red may hold an earlier reduction's values
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = Tr<T>::max_(v, red[w]);
   return v;
 }
 
-// grid (C, ceil(max(n, m) / kRowsPerBlock), 2), block kThreads: candidates
-// on x (up to 2^31 - 1 of them), row tiles on y, the direction on z.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-hausdorff_batch_kernel(const T* __restrict__ p, const uint8_t* __restrict__ pmask,
-                       const T* __restrict__ q, const uint8_t* __restrict__ qmask,
-                       typename Traits<T>::Bits* __restrict__ out, int n, int m,
-                       int K) {
-  using V = typename Traits<T>::Vec;
-  __shared__ V tile[kTile];
-  __shared__ T red[kWarps];
+// grid (C * tiles * splits), block 32 * warps (warps <= kMaxWarps): block b
+// is candidate b % C, row tile (b / C) % tiles, column split b / (C * tiles).
+template <typename T, int R>
+__global__ void __launch_bounds__(kMaxThreads)
+hausdorff_batch_kernel(const Params<T> a) {
+  using Tt = Tr<T>;
+  using V = typename Tt::V;
+  using Bits = typename Tt::Bits;
+  constexpr int U = Tt::kU;
+  constexpr int kTileCols = kTileChunks * kChunk * U;
+  __shared__ V stage[kTileChunks][2 * kChunk];
+  __shared__ Bits colmin_s[kTileCols];
+  __shared__ T red[kMaxWarps];
+  __shared__ unsigned int last_s;
 
-  const int c = blockIdx.x;
-  const int s = c / K;
-  const bool forward = blockIdx.z == 0;
-  const V* p_c = reinterpret_cast<const V*>(p) + (size_t)c * n;
-  const V* q_s = reinterpret_cast<const V*>(q) + (size_t)s * m;
-  const uint8_t* pm_c = pmask + (size_t)c * n;
-  const uint8_t* qm_s = qmask + (size_t)s * m;
-  const V* rows = forward ? p_c : q_s;
-  const uint8_t* row_mask = forward ? pm_c : qm_s;
-  const int n_rows = forward ? n : m;
-  const V* inner = forward ? q_s : p_c;
-  const uint8_t* inner_mask = forward ? qm_s : pm_c;
-  const int n_inner = forward ? m : n;
-
-  const int row0 = blockIdx.y * kRowsPerBlock;
-  if (row0 >= n_rows) return;  // the same for every thread of the block
-
+  const T inf = Tt::inf();
+  const Bits inf_bits = Tt::bits(inf);
   const int tid = threadIdx.x;
-  const T inf = Traits<T>::inf();
-  T px[kRowsPerThread], py[kRowsPerThread], mn[kRowsPerThread];
-  bool live[kRowsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int i = row0 + r * kThreads + tid;
-    live[r] = i < n_rows && row_mask[i] != 0;
-    const V v = live[r] ? rows[i] : V{T(0), T(0)};
-    px[r] = v.x;
-    py[r] = v.y;
-    mn[r] = inf;
-  }
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long b = blockIdx.x;
+  const int c = static_cast<int>(b % a.C);
+  const long long rest = b / a.C;
+  const int tile = static_cast<int>(rest % a.tiles);
+  const int split = static_cast<int>(rest / a.tiles);
+  const int s = c / a.K;
 
-  int any_inner = 0;
-  for (int j0 = 0; j0 < n_inner; j0 += kTile) {
-    const int len = min(kTile, n_inner - j0);
-    __syncthreads();  // the previous tile is consumed
+  const T* p_c = a.p + static_cast<size_t>(c) * a.n * 2;
+  const uint8_t* pm_c = a.pm + static_cast<size_t>(c) * a.n;
+  const T* q_s = a.q + static_cast<size_t>(s) * a.m * 2;
+  const uint8_t* qm_s = a.qm + static_cast<size_t>(s) * a.m;
+  const T* rows = a.swap ? q_s : p_c;
+  const uint8_t* rmask = a.swap ? qm_s : pm_c;
+  const long long n_rows = a.swap ? a.m : a.n;
+  const T* cols = a.swap ? p_c : q_s;
+  const uint8_t* cmask = a.swap ? pm_c : qm_s;
+  const long long n_cols = a.swap ? a.n : a.m;
+
+  // this tile's row groups [g0, g1): balanced, one warp each
+  const long long g0 = tile * a.groups / a.tiles;
+  const long long g1 = (tile + 1) * a.groups / a.tiles;
+  const bool active = warp < g1 - g0;
+  const long long row0 = (g0 + warp) * (32LL * R) + lane;
+  T px[R], py[R], rmin[R];
+  bool live[R];
+  int any_row = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = row0 + 32LL * r;
+    live[r] = active && i < n_rows && rmask[i] != 0;
+    px[r] = inf;
+    py[r] = inf;
+    if (live[r]) {
+      px[r] = rows[2 * i];
+      py[r] = rows[2 * i + 1];
+    }
+    rmin[r] = inf;
+    any_row |= live[r];
+  }
+  any_row = __syncthreads_or(any_row);
+
+  // this split's column chunks [ch_begin, ch_end)
+  const long long n_chunks = (n_cols + kChunk * U - 1) / (kChunk * U);
+  const long long ch_begin = static_cast<long long>(split) * a.chunks_per_split;
+  const long long ch_end = min(n_chunks, ch_begin + a.chunks_per_split);
+  T colmax = T(0);
+  int any_col = 0;
+  for (long long ch0 = ch_begin; ch0 < ch_end; ch0 += kTileChunks) {
+    const int nch = static_cast<int>(min(static_cast<long long>(kTileChunks), ch_end - ch0));
+    __syncthreads();  // the previous tile is consumed and flushed
     int any = 0;
-    for (int j = tid; j < len; j += kThreads) {
-      V v = inner[j0 + j];
-      if (inner_mask[j0 + j] != 0) {
-        any = 1;
-      } else {
-        v.x = inf;
-        v.y = inf;
-      }
-      tile[j] = v;
-    }
-    any_inner |= __syncthreads_or(any);
-#pragma unroll 4
-    for (int j = 0; j < len; ++j) {
-      const V b = tile[j];
+    for (int k = tid; k < nch * kChunk; k += blockDim.x) {
+      T x[U], y[U];
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const T d = Traits<T>::d2(px[r], py[r], b);
-        mn[r] = d < mn[r] ? d : mn[r];
+      for (int u = 0; u < U; ++u) {
+        const long long j = (ch0 * kChunk + k) * U + u;
+        const bool ok = j < n_cols && cmask[j] != 0;
+        x[u] = -inf;
+        y[u] = -inf;
+        if (ok) {
+          x[u] = cols[2 * j];
+          y[u] = cols[2 * j + 1];
+        }
+        any |= ok;
+      }
+      const V v = Tt::join(x, y);
+      stage[k / kChunk][k % kChunk] = v;
+      stage[k / kChunk][k % kChunk + kChunk] = v;
+    }
+    for (int k = tid; k < nch * kChunk * U; k += blockDim.x) colmin_s[k] = inf_bits;
+    any_col |= __syncthreads_or(any);
+    if (active) {
+      for (int ch = 0; ch < nch; ++ch) {
+        const V* src = &stage[ch][lane];
+        T cm[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) cm[u] = inf;
+#pragma unroll 8
+        for (int t = 0; t < kChunk; ++t) {
+          T qx[U], qy[U];
+          Tt::split(src[t], qx, qy);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            T lo = inf;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const T d = d2<T>(px[r], py[r], qx[u], qy[u]);
+              rmin[r] = Tt::min_(rmin[r], d);
+              lo = r == 0 ? d : Tt::min_(lo, d);
+            }
+            // the unit read at step t is (lane + t) mod 32; the next step's
+            // minimum so far sits in the lane above
+            cm[u] = __shfl_sync(0xffffffffu, Tt::min_(cm[u], lo), (lane + 1) & 31);
+          }
+        }
+        // after 32 steps and shuffles the lane holds unit `lane`'s minimum
+#pragma unroll
+        for (int u = 0; u < U; ++u) atomicMin(&colmin_s[(ch * kChunk + lane) * U + u], Tt::bits(cm[u]));
+      }
+    }
+    __syncthreads();
+    for (int k = tid; k < nch * kChunk * U; k += blockDim.x) {
+      const long long j = ch0 * kChunk * U + k;
+      if (j >= n_cols || cmask[j] == 0) continue;
+      const Bits v = colmin_s[k];
+      if (a.tiles == 1) {
+        colmax = Tt::max_(colmax, Tt::val(v));  // complete: every row is in this block
+      } else if (v != inf_bits) {
+        atomicMin(&a.col_part[static_cast<size_t>(c) * n_cols + j], v);
       }
     }
   }
-  if (!any_inner) return;  // empty inner set: the candidate stays 0
 
-  T best = T(0);
+  T mine = colmax;
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r)
-    if (live[r] && mn[r] > best) best = mn[r];
-  best = warp_max(best);
-  if ((tid & 31) == 0) red[tid >> 5] = best;
+  for (int r = 0; r < R; ++r) {
+    if (!live[r]) continue;
+    if (a.splits == 1) {
+      mine = Tt::max_(mine, rmin[r]);  // complete: every column streamed past
+    } else if (rmin[r] != inf) {
+      atomicMin(&a.row_part[static_cast<size_t>(c) * n_rows + row0 + 32LL * r], Tt::bits(rmin[r]));
+    }
+  }
+  mine = block_max(mine, red);
+  unsigned int* state = a.state + 2 * static_cast<size_t>(c);
+  if (tid == 0) {
+    if (mine > T(0)) atomicMax(&a.best[c], Tt::bits(mine));
+    const unsigned int flags = (any_row ? 1u : 0u) | (any_col ? 2u : 0u);
+    if (flags) atomicOr(&state[1], flags);
+  }
+  __threadfence();
   __syncthreads();
   if (tid == 0) {
-    T v = red[0];
-    for (int w = 1; w < kWarps; ++w) v = red[w] > v ? red[w] : v;
-    if (v > T(0)) atomicMax(out + c, Traits<T>::bits(v));
+    last_s = atomicAdd(&state[0], 1u) == static_cast<unsigned int>(a.tiles * a.splits - 1);
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+
+  // the candidate's last block: its partial minima, then out[c]
+  T fin = T(0);
+  if (a.tiles > 1) {
+    Bits* part = a.col_part + static_cast<size_t>(c) * n_cols;
+    for (long long j = tid; j < n_cols; j += blockDim.x) {
+      const Bits v = __ldcg(part + j);
+      if (v == inf_bits) continue;  // never written
+      part[j] = inf_bits;
+      if (cmask[j] != 0) fin = Tt::max_(fin, Tt::val(v));
+    }
+  }
+  if (a.splits > 1) {
+    Bits* part = a.row_part + static_cast<size_t>(c) * n_rows;
+    for (long long i = tid; i < n_rows; i += blockDim.x) {
+      const Bits v = __ldcg(part + i);
+      if (v == inf_bits) continue;
+      part[i] = inf_bits;
+      if (rmask[i] != 0) fin = Tt::max_(fin, Tt::val(v));
+    }
+  }
+  fin = block_max(fin, red);
+  if (tid == 0) {
+    fin = Tt::max_(fin, Tt::val(atomicExch(&a.best[c], Bits(0))));
+    const unsigned int flags = atomicExch(&state[1], 0u);
+    a.out[c] = flags == 3u ? fin : T(0);
+    state[0] = 0u;
   }
 }
 
+template <typename T, int R>
+int launch_r(const Params<T>& a, int warps, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(a.C) * a.tiles * a.splits;
+  hausdorff_batch_kernel<T, R><<<static_cast<unsigned int>(blocks), 32 * warps, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the rows a thread holds: the variants ops/hausdorff_batch.py::ROWS_PER_THREAD
+// names for the element size
 template <typename T>
-int launch(const T* p, const uint8_t* pmask, const T* q, const uint8_t* qmask,
-           void* out, int C, int n, int m, int K, void* stream) {
-  const int rows = n > m ? n : m;
-  const dim3 grid(C, (rows + kRowsPerBlock - 1) / kRowsPerBlock, 2);
+int launch(Params<T> a, int R, int warps, void* stream) {
+  const long long n_rows = a.swap ? a.m : a.n;
+  const long long n_cols = a.swap ? a.n : a.m;
+  const long long n_chunks = (n_cols + kChunk * Tr<T>::kU - 1) / (kChunk * Tr<T>::kU);
+  if (a.C < 1 || a.n < 1 || a.m < 1 || a.K < 1 || a.C % a.K != 0 || warps < 1 ||
+      warps > kMaxWarps || a.tiles < 1 || a.splits < 1 || a.chunks_per_split < 1 ||
+      a.groups != (n_rows + 32LL * R - 1) / (32LL * R) || a.tiles > a.groups ||
+      (a.groups + a.tiles - 1) / a.tiles > warps ||
+      static_cast<long long>(a.splits) * a.chunks_per_split < n_chunks ||
+      static_cast<long long>(a.C) * a.tiles * a.splits > 0x7fffffffLL ||
+      (a.tiles > 1 && a.col_part == nullptr) || (a.splits > 1 && a.row_part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  hausdorff_batch_kernel<T><<<grid, kThreads, 0, st>>>(
-      p, pmask, q, qmask, reinterpret_cast<typename Traits<T>::Bits*>(out), n,
-      m, K);
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(T) == 4) {
+    switch (R) {
+      case 2: return launch_r<T, 2>(a, warps, st);
+      case 4: return launch_r<T, 4>(a, warps, st);
+      case 8: return launch_r<T, 8>(a, warps, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (R) {
+      case 1: return launch_r<T, 1>(a, warps, st);
+      case 2: return launch_r<T, 2>(a, warps, st);
+      case 4: return launch_r<T, 4>(a, warps, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+}
+
+template <typename T, int R>
+int info_r(int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, hausdorff_batch_kernel<T, R>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = static_cast<int>(attr.sharedSizeBytes);
+  for (int w = 1; w <= kMaxWarps; ++w) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, hausdorff_batch_kernel<T, R>,
+                                                        32 * w, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    info[2 + w] = blocks;
+  }
+  info[3 + kMaxWarps] = kChunk;
+  info[4 + kMaxWarps] = kTileChunks;
+  return 0;
+}
+
+template <typename T>
+Params<T> params(const T* p, const uint8_t* pm, const T* q, const uint8_t* qm, T* out,
+                 void* best, unsigned int* state, void* row_part, void* col_part, int C,
+                 int n, int m, int K, int swap, int R, int tiles, int splits,
+                 int chunks_per_split) {
+  using Bits = typename Tr<T>::Bits;
+  Params<T> a;
+  a.p = p; a.pm = pm; a.q = q; a.qm = qm; a.out = out;
+  a.best = static_cast<Bits*>(best);
+  a.state = state;
+  a.row_part = static_cast<Bits*>(row_part);
+  a.col_part = static_cast<Bits*>(col_part);
+  a.C = C; a.n = n; a.m = m; a.K = K; a.swap = swap != 0;
+  a.tiles = tiles; a.splits = splits; a.chunks_per_split = chunks_per_split;
+  const long long n_rows = swap ? m : n;
+  a.groups = (n_rows + 32LL * R - 1) / (32LL * R);
+  return a;
 }
 
 }  // namespace
@@ -195,21 +432,54 @@ int launch(const T* p, const uint8_t* pmask, const T* q, const uint8_t* qmask,
 extern "C" {
 
 const char* mm_hausdorff_batch_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out: C zeroed 32-bit words, read afterwards as float32
-int mm_hausdorff_batch_f32(const float* p, const uint8_t* pmask, const float* q,
-                           const uint8_t* qmask, void* out, int C, int n, int m,
-                           int K, void* stream) {
-  return launch<float>(p, pmask, q, qmask, out, C, n, m, K, stream);
+// info[0 .. 4 + 16]: registers a thread, local (spilled) bytes a thread,
+// static shared bytes a block, resident blocks per SM at 1 .. 16 warps a
+// block, units a chunk, chunks a shared-memory tile; for the variant of
+// `elem_size` (4 or 8) and `R` rows a thread.  Returns 0 or a CUDA error.
+int mm_hausdorff_batch_info(int elem_size, int R, int* info) {
+  if (elem_size == 4) {
+    switch (R) {
+      case 2: return info_r<float, 2>(info);
+      case 4: return info_r<float, 4>(info);
+      case 8: return info_r<float, 8>(info);
+    }
+  } else if (elem_size == 8) {
+    switch (R) {
+      case 1: return info_r<double, 1>(info);
+      case 2: return info_r<double, 2>(info);
+      case 4: return info_r<double, 4>(info);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out: C zeroed 64-bit words, read afterwards as float64
-int mm_hausdorff_batch_f64(const double* p, const uint8_t* pmask,
-                           const double* q, const uint8_t* qmask, void* out,
-                           int C, int n, int m, int K, void* stream) {
-  return launch<double>(p, pmask, q, qmask, out, C, n, m, K, stream);
+// p [C, n, 2], pm [C, n], q [S, m, 2], qm [S, m] (C = S * K), out [C]; best:
+// C words of the element's width, 0; state: 2 C words, 0; row_part: C x
+// (m if swap else n) words of +inf bits, or null when splits = 1; col_part:
+// C x (n if swap else m) words of +inf bits, or null when tiles = 1.  The
+// kernel leaves the scratch as it found it.  R, warps, tiles, splits and
+// chunks_per_split come from ops/hausdorff_batch.py::plan_launch.
+int mm_hausdorff_batch_f32(const float* p, const uint8_t* pm, const float* q,
+                           const uint8_t* qm, float* out, void* best, unsigned int* state,
+                           void* row_part, void* col_part, int C, int n, int m, int K,
+                           int swap, int R, int warps, int tiles, int splits,
+                           int chunks_per_split, void* stream) {
+  return launch<float>(params<float>(p, pm, q, qm, out, best, state, row_part, col_part, C, n,
+                                     m, K, swap, R, tiles, splits, chunks_per_split),
+                       R, warps, stream);
+}
+
+int mm_hausdorff_batch_f64(const double* p, const uint8_t* pm, const double* q,
+                           const uint8_t* qm, double* out, void* best, unsigned int* state,
+                           void* row_part, void* col_part, int C, int n, int m, int K,
+                           int swap, int R, int warps, int tiles, int splits,
+                           int chunks_per_split, void* stream) {
+  return launch<double>(params<double>(p, pm, q, qm, out, best, state, row_part, col_part, C,
+                                       n, m, K, swap, R, tiles, splits, chunks_per_split),
+                        R, warps, stream);
 }
 
 }  // extern "C"

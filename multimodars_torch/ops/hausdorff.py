@@ -93,6 +93,13 @@ def _masked_on_kernel(p, q, pmask, qmask):
     dtype = torch.promote_types(p.dtype, q.dtype)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"p, q: dtype {dtype}, expected float32 or float64")
+    if (p.dim() == q.dim() == 3 and p.shape[0] == q.shape[0] and p.shape[2] == q.shape[2] == 2
+            and p.dtype == q.dtype and pmask.shape == p.shape[:2]
+            and qmask.shape == q.shape[:2]
+            and all(t.is_contiguous() for t in (p, q, pmask, qmask))):
+        # already the kernel's layout, one candidate a reference set: no
+        # broadcast, no reshape, no copy
+        return hausdorff_batch.hausdorff_sq_shared_ref(p, pmask, q, qmask, 1)
     lead = torch.broadcast_shapes(p.shape[:-2], q.shape[:-2], pmask.shape[:-1],
                                   qmask.shape[:-1])
     n = torch.broadcast_shapes(p.shape[-2:-1], pmask.shape[-1:])[0]

@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
     python3 sweep_bench.py --root OTHER_TREE      # another checkout's
     python3 sweep_bench.py --family ccta [--root OTHER_TREE]
     python3 sweep_bench.py --family ray [--only-kernel] [--sass] [--root OTHER_TREE]
+    python3 sweep_bench.py --family refine [--root OTHER_TREE]
 
 It imports ``multimodars_torch`` from ``--root`` (default: the directory of
 this script) and builds its kernels.
@@ -55,6 +56,24 @@ this script) and builds its kernels.
   call, median of 11 after a warm-up.  It prints the smallest ray x face
   count above which the kernel's route won at every measured size, and
   the plain version's time on the CPU at two sizes.
+
+- ``--family refine`` times the refine kernel,
+  ``hausdorff_batch.hausdorff_sq_shared_ref(p, pmask, q, qmask, K)``, on
+  chip_smoke.py's seeded refine table (S 5 x K 31 candidates of 11,200
+  points against clouds of 11,178, every point valid) and the
+  public ``ops.hausdorff_sq_masked(p, q, pmask, qmask)`` on OCT-280's 279
+  consecutive pairs of 520 points (all valid), f32 and f64, the
+  signatures every checkout since the ``ops`` surface's port has: CUDA
+  events around 5 calls (median of 11 windows), the device time of a call
+  over every ``hausdorff_batch`` kernel it launches (torch.profiler, 20
+  calls), and the host time of a call (40 calls, one synchronise); on the
+  pairs also the host time of the direct ``hausdorff_sq_shared_ref`` call
+  and of its ``check_inputs`` alone, which splits the public call's host
+  time into packing, checks and launch.  Each line names the launch plan
+  where the checkout has a planner, and the bound both as chip_smoke.py
+  states it now (7 operations a valid unordered pair) and as the 5
+  operations a directed pair of earlier checkouts; ``--sass`` adds the
+  instructions per pair of each variant's inner loop.
 
 Bounds and shares are chip_smoke.py's.  To compare two versions, time them
 in one run on one card, in turns: parent, change, change, parent.
@@ -207,11 +226,12 @@ def host_ms(torch, fn, calls=40, windows=11):
     return sorted(times)[windows // 2]
 
 
-def sass_per_pair(sass: str):
+def sass_per_pair(sass: str, muls_per_pair: int = 3):
     """Per kernel function of a ``cuobjdump -sass`` dump: its per-pair loop,
     the loop (a backward branch) with the most FP multiplies per
     instruction, as (function, instructions, pairs, counts by opcode); a
-    pair's d2 takes 3 multiplies."""
+    pair's d2 takes ``muls_per_pair`` multiplies (3 in the count, pick and
+    sweep kernels, 2 in the refine kernel)."""
     import collections
     import re
 
@@ -233,7 +253,7 @@ def sass_per_pair(sass: str):
                 best = (muls / len(body), body)
         if best is not None:
             body = best[1]
-            pairs = sum(o in ("FMUL", "DMUL") for o in body) // 3
+            pairs = sum(o in ("FMUL", "DMUL") for o in body) // muls_per_pair
             out.append((name, len(body), pairs, collections.Counter(body)))
     return out
 
@@ -623,18 +643,99 @@ def bench_ray(torch, tag, rays, runs=11):
     print(f"[bench-ray] {tag}: card {card_state()}", flush=True)
 
 
+def refine_cases(torch, np):
+    """(name, fn, inputs) of each refine-kernel call that ``--family refine``
+    times: the seeded refine table and OCT-280's pairs through the public
+    name, f32 and f64; ``inputs`` are the kernel's (p, pmask, q, qmask, K)."""
+    from chip_smoke import oct_sample_sets, synthetic_refine_tables
+
+    from multimodars_torch import ops
+    from multimodars_torch.ops import hausdorff_batch as hb
+
+    dev = torch.device("cuda", 0)
+    (p, pm, q, qm), K = synthetic_refine_tables(m=11178)
+    pm[:] = True  # every point valid, as in phase 6's table: the bound
+    qm[:] = True  # then counts the pairs the kernel evaluates
+    pts = np.ascontiguousarray(oct_sample_sets())
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        table = (torch.as_tensor(p, dtype=dtype, device=dev), torch.as_tensor(pm, device=dev),
+                 torch.as_tensor(q, dtype=dtype, device=dev), torch.as_tensor(qm, device=dev), K)
+        cases.append((f"{tag} refine table [S*K {p.shape[0]}, n {p.shape[1]}, m {q.shape[1]}]",
+                      lambda a=table: hb.hausdorff_sq_shared_ref(*a), table))
+        t = torch.as_tensor(pts, dtype=dtype, device=dev)
+        mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+        pair = (t[1:], mask[1:], t[:-1], mask[:-1], 1)
+        cases.append((f"{tag} public ops.hausdorff_sq_masked on OCT-280's pairs "
+                      f"[{len(pts) - 1}, {pts.shape[1]}, 2]",
+                      lambda a=pair: ops.hausdorff_sq_masked(a[0], a[2], a[1], a[3]), pair))
+    return cases
+
+
+def bench_refine(torch, np, tag, sass=False):
+    """The refine kernel on its table and through the public name on
+    OCT-280's pairs: events, device time, host time, plan and both bounds."""
+    from chip_smoke import card_state, refine_bound, refine_bound_directed
+
+    from multimodars_torch.ops import _cuda_build
+    from multimodars_torch.ops import hausdorff_batch as hb
+
+    for name, fn, args in refine_cases(torch, np):
+        ms = events_ms(torch, fn)
+        dms, per_call = device_ms(torch, fn, "hausdorff_batch")
+        hms = host_ms(torch, fn)
+        bound, by = refine_bound(torch, *args)
+        old, _ = refine_bound_directed(torch, *args)
+        plan = ""
+        if hasattr(hb, "launch_plan"):
+            p = hb.launch_plan(args[0].shape[0], args[0].shape[1], args[2].shape[1],
+                               args[0].element_size(), args[0].device)
+            plan = f"; plan {p._asdict()}"
+        print(f"[bench-refine] {tag}: {name}: events {ms:.4f} ms, device {dms:.4f} ms a call "
+              f"over {per_call:g} launch(es), host {hms:.4f} ms a call; bound {bound:.4f} ms "
+              f"({by}, 7 ops a valid unordered pair): {100.0 * bound / dms:.1f}% of device "
+              f"time, {100.0 * bound / ms:.1f}% by events; 5-op directed bound {old:.4f} ms "
+              f"({100.0 * old / dms:.1f}% of device time){plan} (card after: {card_state()})",
+              flush=True)
+        if "pairs" in name:
+            direct = host_ms(torch, lambda: hb.hausdorff_sq_shared_ref(*args))
+            checks = host_ms(torch, lambda: hb.check_inputs(*args))
+            print(f"[bench-refine] {tag}: {name}: host time of the direct kernel call "
+                  f"{direct:.4f} ms, of its check_inputs {checks:.4f} ms; the public call's "
+                  f"packing {hms - direct:.4f} ms", flush=True)
+    for name, (_, log) in sorted(_cuda_build.reports.items()):
+        if "hausdorff" not in name:
+            continue
+        for line in log.splitlines():
+            if "registers" in line or "stack frame" in line or "Compiling entry" in line:
+                print(f"[bench-refine] {tag}: ptxas {name}: {line.strip()}", flush=True)
+    if sass:
+        import subprocess
+
+        cuobjdump = Path(_cuda_build._nvcc("cuobjdump")).with_name("cuobjdump")
+        dump = subprocess.run([str(cuobjdump), "-sass", str(_cuda_build.library_path(hb.SOURCE))],
+                              check=True, capture_output=True, text=True).stdout
+        for name, n, pairs, ops in sass_per_pair(dump, muls_per_pair=2):
+            top = ", ".join(f"{o} {c}" for o, c in ops.most_common(10))
+            print(f"[bench-refine] {tag}: sass {name}: inner loop {n} instructions for {pairs} "
+                  f"pairs, {n / max(pairs, 1):.2f} a pair ({top})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose multimodars_torch is timed")
     ap.add_argument("--tag", default="", help="label printed on every line")
-    ap.add_argument("--family", choices=["sweep", "ccta", "ccta-wall", "ray"], default="sweep",
+    ap.add_argument("--family", choices=["sweep", "ccta", "ccta-wall", "ray", "refine"],
+                    default="sweep",
                     help="the sweep kernel, the CCTA count, pick and morph-sweep kernels, "
-                         "the CCTA wall clock, or the occlusion pass's two ray routes")
+                         "the CCTA wall clock, the occlusion pass's two ray routes, or the "
+                         "refine kernel")
     ap.add_argument("--only-morph", action="store_true",
                     help="with --family ccta: the morph-sweep shapes alone")
     ap.add_argument("--sass", action="store_true",
-                    help="with --family ccta or ray: instructions per pair of the kernels' "
+                    help="with --family ccta, ray or refine: instructions per pair of the kernels' "
                          "inner loops (cuobjdump -sass)")
     ap.add_argument("--only-kernel", action="store_true",
                     help="with --family ray: the ray kernel alone, not the two routes")
@@ -661,6 +762,9 @@ def main() -> int:
     tag = args.tag or root.name
     if args.family == "ccta-wall":
         bench_ccta_wall(torch, tag)
+        return 0
+    if args.family == "refine":
+        bench_refine(torch, np, tag, args.sass)
         return 0
     if args.family == "ray":
         rays = phase8_rays(torch)

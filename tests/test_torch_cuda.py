@@ -328,15 +328,37 @@ def _refine_case(S, K, n, m, seed):
     return p, pmask, q, qmask
 
 
-@pytest.mark.parametrize("n, m", [(37, 45), (2500, 1300), (700, 3100)])
+def _numpy_table(p, pmask, q, qmask, K):
+    """numpy's dx*dx + dy*dy table with exact min and max, 0 for an empty
+    set: what the f64 kernel must equal bit for bit."""
+    out = np.zeros(len(p))
+    for c in range(len(p)):
+        a, b = p[c][pmask[c]], q[c // K][qmask[c // K]]
+        if len(a) and len(b):
+            dx = a[:, None, 0] - b[None, :, 0]
+            dy = a[:, None, 1] - b[None, :, 1]
+            d2 = dx * dx + dy * dy
+            out[c] = max(d2.min(axis=1).max(), d2.min(axis=0).max())
+    return out
+
+
+# (S, K, n, m): the refine's layout, sets over one shared-memory tile; the
+# public call on OCT-280's pairs (279 candidates of 520 points, K = 1); sets
+# that left a one-row last tile under the 512-row grid of the first kernel;
+# n >> m and n << m
+HAUSDORFF_SHAPES = [(3, 5, 37, 45), (3, 5, 2500, 1300), (3, 5, 700, 3100),
+                    (279, 1, 520, 520), (3, 5, 513, 1), (3, 5, 1, 513),
+                    (2, 3, 9000, 40), (2, 3, 40, 9000)]
+
+
+@pytest.mark.parametrize("S, K, n, m", HAUSDORFF_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_hausdorff_kernel_matches_plain(cuda, dtype, n, m):
+def test_hausdorff_kernel_matches_plain(cuda, dtype, S, K, n, m):
     """The shared-reference kernel against its plain version on the same
-    CUDA tensors, masked, with an empty candidate and an empty cloud, and
-    with sets larger than one shared-memory tile (1024 points) and one
-    block's rows (512): equal bit for bit, since both round every
-    operation of d2 and min/max are exact."""
-    S, K = 3, 5
+    CUDA tensors, masked, with an empty candidate and an empty cloud: one
+    launch a call, equal bit for bit, since both round every operation of
+    d2 and min/max are exact; in float64 also numpy's table.  A candidate is
+    0 exactly where one of its sets is empty."""
     p, pmask, q, qmask = _refine_case(S, K, n, m, seed=n + m)
     args = (torch.tensor(p, dtype=dtype, device=cuda), torch.tensor(pmask, device=cuda),
             torch.tensor(q, dtype=dtype, device=cuda), torch.tensor(qmask, device=cuda))
@@ -348,7 +370,43 @@ def test_hausdorff_kernel_matches_plain(cuda, dtype, n, m):
     assert got.dtype == dtype and tuple(got.shape) == (S * K,)
     got, want = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_array_equal(got, want)
-    assert got[1] == 0.0 and (got[-K:] == 0.0).all() and (got[2:-K] > 0).all()
+    both = pmask.any(1) & qmask[np.arange(S * K) // K].any(1)
+    assert got[1] == 0.0 and (got[-K:] == 0.0).all()
+    np.testing.assert_array_equal(got > 0, both)
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(got, _numpy_table(p, pmask, q, qmask, K))
+
+
+@pytest.mark.parametrize("S, K, n, m", [(1, 2, 300, 20000), (1, 2, 6000, 9000)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_hausdorff_kernel_split_columns(cuda, dtype, S, K, n, m):
+    """Too few candidates to fill the card: the plan splits the columns
+    over several blocks (row minima meet in the scratch), with several row
+    tiles in the second case (column minima too).  Bit for bit the plain
+    version in one launch, and the same table again after a call of
+    another shape, so the kernel left its scratch as it found it."""
+    p, pmask, q, qmask = _refine_case(S, K, n, m, seed=n)
+    pmask[1 % (S * K)] = True
+    qmask[-1] = True
+    args = (torch.tensor(p, dtype=dtype, device=cuda), torch.tensor(pmask, device=cuda),
+            torch.tensor(q, dtype=dtype, device=cuda), torch.tensor(qmask, device=cuda))
+    plan = hb.launch_plan(S * K, n, m, args[0].element_size(), cuda)
+    assert plan.splits > 1
+    if n > 1000:
+        assert plan.tiles > 1
+    launches = hb.launches
+    got = hb.hausdorff_sq_shared_ref(*args, K)
+    assert hb.launches == launches + 1
+    other = _refine_case(3, 5, 700, 3100, seed=2)
+    hb.hausdorff_sq_shared_ref(torch.tensor(other[0], dtype=dtype, device=cuda),
+                               torch.tensor(other[1], device=cuda),
+                               torch.tensor(other[2], dtype=dtype, device=cuda),
+                               torch.tensor(other[3], device=cuda), 5)
+    again = hb.hausdorff_sq_shared_ref(*args, K)
+    want = hb.hausdorff_sq_shared_ref_plain(*args, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert (got > 0).all()
 
 
 def test_hausdorff_kernel_f64_equals_numpy(cuda):

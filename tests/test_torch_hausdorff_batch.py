@@ -120,3 +120,140 @@ def test_unsupported_device_raises():
     args = [t.to("meta") for t in _torch_args(p, pmask, q, qmask)]
     with pytest.raises(ValueError, match="no hausdorff_batch kernel"):
         hb.hausdorff_sq_shared_ref(*args, 1)
+
+
+# --- the kernel's launch planner and its tile and merge order --------------
+
+# (C, n, m): sets of 1-3 points; OCT-280's 279 pairs of 520 points; the
+# refine table (S 5 x K 31); n << m and n >> m; a set above 2**16 points
+PLAN_SHAPES = [(1, 1, 1), (3, 2, 3), (2, 3, 1), (279, 520, 520), (155, 11200, 11178),
+               (4, 100, 5000), (4, 5000, 100), (2, 70000, 300)]
+
+
+def _plan_shape_cases():
+    for C, n, m in PLAN_SHAPES:
+        for elem in (4, 8):
+            for sms, occ in ((hb.SMS, None), (1, None), (hb.SMS, "narrow")):
+                yield C, n, m, elem, sms, occ
+
+
+def _occupancy(elem, occ):
+    """The model's table, or one where wide blocks cannot be resident at all
+    and narrow ones only once (a card the planner must still cover)."""
+    table = hb.model_occupancy(elem)
+    if occ == "narrow":
+        table = tuple((R, tuple(1 if w <= 4 else 0 for w in range(1, hb.MAX_WARPS + 1)))
+                      for R, _ in table)
+    return table
+
+
+@pytest.mark.parametrize("C, n, m, elem, sms, occ", list(_plan_shape_cases()))
+def test_plan_covers_every_pair_once_in_whole_waves(C, n, m, elem, sms, occ):
+    """Every (candidate, row, column) pair is in exactly one block; where
+    there is work for a block an SM, the blocks come in whole waves (the
+    busiest SM holds at most a quarter more than the mean); no row tile is
+    under half the planned rows; the plan's variant, widths and counts are
+    what the kernel checks before it launches."""
+    table = _occupancy(elem, occ)
+    plan = hb.plan_launch(C, n, m, elem, sms, table)
+    rows, cols = (m, n) if plan.swap else (n, m)
+    U = hb.UNIT[elem]
+    assert plan.rows_per_thread in hb.ROWS_PER_THREAD[elem]
+    assert 1 <= plan.warps <= hb.MAX_WARPS
+    assert dict(table)[plan.rows_per_thread][plan.warps - 1] >= 1
+    assert plan.groups == -(-rows // (32 * plan.rows_per_thread))
+    assert plan.chunks == -(-cols // (hb.CHUNK * U))
+    assert 1 <= plan.tiles <= plan.groups and -(-plan.groups // plan.tiles) <= plan.warps
+    assert plan.splits * plan.chunks_per_split >= plan.chunks
+    assert (plan.splits - 1) * plan.chunks_per_split < plan.chunks
+    assert plan.blocks == C * plan.tiles * plan.splits
+    assert (plan.waves - 1) * plan.slots < plan.blocks <= plan.waves * plan.slots
+    per_sm = -(-plan.blocks // sms)
+    if C * n * m >= 32 * 64 * sms:  # work enough for a block an SM
+        assert per_sm * sms <= hb._WAVE_SLACK * plan.blocks
+    by_c = [[] for _ in range(C)]
+    for c, (r0, r1), (j0, j1) in hb.blocks_of(C, n, m, elem, plan):
+        by_c[c].append((r0, r1, j0, j1))
+    planned = -(-rows // plan.tiles)
+    first = sorted(by_c[0])
+    row_ranges = sorted({b[:2] for b in first})
+    col_ranges = sorted({b[2:] for b in first})
+    assert len(first) == len(row_ranges) * len(col_ranges) == plan.tiles * plan.splits
+    assert set(first) == {r + c for r in row_ranges for c in col_ranges}
+    for ranges, total in ((row_ranges, rows), (col_ranges, cols)):
+        assert ranges[0][0] == 0 and ranges[-1][1] == total
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all(r1 > r0 for r0, r1 in ranges)
+    assert all(2 * (r1 - r0) >= planned for r0, r1 in row_ranges)
+    assert all(sorted(blocks) == first for blocks in by_c)
+
+
+def test_plan_refuses_what_the_kernel_cannot_take():
+    for args in ((0, 5, 5, 4), (3, 0, 5, 4), (3, 5, 0, 8), (3, 5, 5, 2), (3, 5, 5, 4, 0)):
+        with pytest.raises(ValueError):
+            hb.plan_launch(*args)
+
+
+def _forced_plan(C, n, m, elem, swap, R, W, Z):
+    """A plan of the kernel's form with the given row side, R, block width
+    and split count: the fewest tiles of W groups."""
+    rows, cols = (m, n) if swap else (n, m)
+    G = -(-rows // (32 * R))
+    T = -(-G // W)
+    chunks = -(-cols // (hb.CHUNK * hb.UNIT[elem]))
+    cps = -(-chunks // Z)
+    Z = -(-chunks // cps)
+    return hb.LaunchPlan(swap, R, W, T, Z, cps, G, chunks, C * T * Z, 1, C * T * Z)
+
+
+def _ordered_case(S, K, n, m, seed):
+    """Seeded masked inputs with an empty candidate and an empty cloud, and
+    invalid rows of every candidate against invalid columns of its cloud."""
+    p, pmask, q, qmask = _case(S, K, n, m, seed)
+    pmask[1 % (S * K)] = False
+    qmask[-1] = False
+    pmask[:, -3:] = False
+    qmask[:, -3:] = False
+    return p, pmask, q, qmask
+
+
+@pytest.mark.parametrize("how", ["planned", "one SM", "tiles and splits", "swapped, tiles and splits"])
+@pytest.mark.parametrize("S, K, n, m", [(2, 3, 70, 90), (1, 2, 300, 41), (3, 1, 41, 300)])
+def test_kernel_order_equals_plain_and_jax(S, K, n, m, how):
+    """The kernel's tile and merge order (:func:`hausdorff_sq_ordered`)
+    against the plain version and the JAX package's ``hausdorff_sq_masked``
+    on the broadcast inputs: bit for bit in float64 (and against plain in
+    float32), under the planner's plans and under forced plans with several
+    row tiles and column splits on either side; no invalid point makes a
+    NaN (the emulation raises on one)."""
+    p, pmask, q, qmask = _ordered_case(S, K, n, m, seed=n * m + S)
+    C = S * K
+    plan = {
+        "planned": lambda e: hb.plan_launch(C, n, m, e),
+        "one SM": lambda e: hb.plan_launch(C, n, m, e, 1),
+        "tiles and splits": lambda e: _forced_plan(C, n, m, e, False, 1, 1, 3),
+        "swapped, tiles and splits": lambda e: _forced_plan(C, n, m, e, True, 1, 1, 3),
+    }[how]
+    args = _torch_args(p, pmask, q, qmask)
+    if how.endswith("splits"):
+        assert plan(8).tiles > 1 and plan(8).splits > 1
+    got = hb.hausdorff_sq_ordered(*args, K, plan(8))
+    want = hb.hausdorff_sq_shared_ref_plain(*args, K)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), _jax_table(p, pmask, q, qmask, K))
+    assert got[1 % C] == 0.0 and (got[-K:] == 0.0).all()
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    assert torch.equal(hb.hausdorff_sq_ordered(*f32, K, plan(4)),
+                       hb.hausdorff_sq_shared_ref_plain(*f32, K))
+
+
+def test_kernel_order_all_points_invalid_on_one_side():
+    """Every row invalid against every column invalid, and one side empty
+    with the other full: 0, with no NaN from inf - inf."""
+    p, pmask, q, qmask = _case(2, 2, 40, 50, seed=3)
+    for pm, qm in ((np.zeros_like(pmask), np.zeros_like(qmask)),
+                   (np.zeros_like(pmask), np.ones_like(qmask)),
+                   (np.ones_like(pmask), np.zeros_like(qmask))):
+        args = _torch_args(p, pm, q, qm)
+        for plan in (None, _forced_plan(4, 40, 50, 8, False, 1, 1, 2)):
+            assert torch.equal(hb.hausdorff_sq_ordered(*args, 2, plan), torch.zeros(4, dtype=torch.float64))
