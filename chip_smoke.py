@@ -18,8 +18,9 @@ Phases:
 
 1. environment: card name and power limit, torch/CUDA versions, kernel builds
 2. kernel against plain on the card: masked/dense, outer strides 1 and 6,
-   f32 and f64; f64 within rtol 1e-12 with equal argmins, f32 within the
-   certification band; the f32 divergence from f64 in band units; times
+   f32 and f64; f64 within rtol 1e-12 with equal argmins, f32 within
+   ``KERNEL_PLAIN_F32_UNITS``; the f32 divergence from f64 in those units;
+   times
 3. the main path on the card: f32 and f64 runs, launches counted, rot logs
    on the same grid angles, coordinates within 1e-4 mm, repair counters,
    exact host-f64 ladder spot checks, wall clock (median of 5 after 2
@@ -104,6 +105,20 @@ Phases:
     ms by events and device ms a launch (torch.profiler), plain and
     ``torch.cdist`` composition ms, bound and share, and the refine
     kernel's launch plan (blocks, waves, registers, spills)
+11. the f32 certification band (``[band]`` lines): every cost table of
+    the f64 runs of ``from_array_single`` on OCT-280, ``from_array_full``
+    on 4 x OCT-280, ``from_array_cohort`` on phase 7's 16 pullbacks,
+    ``from_file_full`` on ivus_rest + ivus_stress and
+    ``from_file_single`` on ivus_full's diastole, and the seeded adversarial
+    family of tests/test_torch_band.py, on the kernel in f32 (inputs cast
+    as the f32 search casts them) and f64: the largest |f32 - f64| in units
+    of the derived per-entry bound (must be <= 1, also for the plain
+    version on the family), and the rows whose f32 argmin differs from the
+    f64 one, unflagged by the derived band (must be 0) and by the old one;
+    then each of those paths in f32 under the derived and the old band:
+    flags, f64 re-searches, host-exact repairs, pruned-stage fallbacks,
+    the host time of the repair spans and the events time of the f64
+    re-search tables, and the coordinates within 1e-4 mm of the f64 run
 
 Every phase prints its lines; any failure exits non-zero.  The line before
 the last is the kernel summary JSON, the last line is
@@ -144,10 +159,15 @@ FULL_ARGS = dict(
 )
 FULL_PHASES = (("rest_dia", 7), ("rest_sys", 8), ("stress_dia", 9),
                ("stress_sys", 10))
-# the f32 exact tables' divergence from f64 within 2 bands of the winner, in
-# units eps32*(sqrt(scale2*m)+m), that the certification band was calibrated
-# on (ROADMAP C; the first kernel measured 2.07)
+# the f32 exact tables' divergence from f64 within NEAR_WINDOW_UNITS of the
+# winner, in units eps32*(sqrt(scale2*m)+m), as the first kernel measured
+# it (2.07; ROADMAP C)
 DIVERGENCE_NEAR_MAX = 2.3
+NEAR_WINDOW_UNITS = 16.0
+# the f32 kernel against its plain version, in units eps32*(sqrt(scale2*c)+c)
+# of each cost c: the value of the certification band of earlier checkouts,
+# kept as the tolerance when the band was derived anew (ops/rotation_search.py)
+KERNEL_PLAIN_F32_UNITS = 8.0
 
 
 class SmokeFailure(Exception):
@@ -487,12 +507,13 @@ def phase_kernel(torch, sweep, rs):
             kf, pf = k[fin], p[fin]
             c = np.maximum(pf, 0.0)
             unit_c = eps * (np.sqrt(np.broadcast_to(s2, k.shape)[fin] * c) + c)
-            check((np.abs(kf - pf) <= rs._TIE_C * unit_c).all(),
-                  f"{name}: kernel differs from plain by more than the band")
+            check((np.abs(kf - pf) <= KERNEL_PLAIN_F32_UNITS * unit_c).all(),
+                  f"{name}: kernel differs from plain by more than "
+                  f"{KERNEL_PLAIN_F32_UNITS} units")
             # divergence from the f64 table in units eps32*(sqrt(scale2*m)+m)
-            # of the band at the winning cost m (the band is _TIE_C units):
-            # over all candidates, over those within 2 bands of m, and in
-            # each candidate's own unit eps32*(sqrt(scale2*c)+c)
+            # at the winning cost m: over all candidates, over those within
+            # NEAR_WINDOW_UNITS of m, and in each candidate's own unit
+            # eps32*(sqrt(scale2*c)+c)
             ref64 = results[(torch.float64, dense, stride)]["k"]
             m64 = np.where(np.isfinite(ref64), ref64, np.inf).min(axis=1)
             unit_m = eps * (np.sqrt(r["scale2"] * m64) + m64)
@@ -500,22 +521,23 @@ def phase_kernel(torch, sweep, rs):
             r64 = ref64[fin]
             div = np.abs(kf - r64) / um
             divp = np.abs(pf - r64) / um
-            near = r64 <= np.broadcast_to(m64[:, None], k.shape)[fin] + 2 * rs._TIE_C * um
+            near = r64 <= np.broadcast_to(m64[:, None], k.shape)[fin] + NEAR_WINDOW_UNITS * um
             own = np.abs(kf - r64) / (eps * (np.sqrt(np.broadcast_to(s2, k.shape)[fin] * r64) + r64))
             line += (f"; |cost_f32 - cost_f64| in units at m: max {float(div.max()):.3f} "
-                     f"(= {float(div.max()) / rs._TIE_C:.3f} bands) over all, "
-                     f"{float(div[near].max()):.3f} within 2 bands of m; "
+                     f"(= {float(div.max()) / rs._TIE_C[torch.float32]:.3f} f32 "
+                     f"band units) over all, "
+                     f"{float(div[near].max()):.3f} within {NEAR_WINDOW_UNITS:g} units of m; "
                      f"own-cost units max {float(own.max()):.3f}; "
                      f"plain f32 {float(divp.max()):.3f} units at m over all, "
-                     f"{float(divp[near].max()):.3f} within 2 bands of m")
+                     f"{float(divp[near].max()):.3f} within {NEAR_WINDOW_UNITS:g} units of m")
             near_max = float(div[near].max())
         say("kernel", line)
         if dtype == torch.float32 and stride == 1:
-            # the band's calibration (ROADMAP C) holds near the winner of an
+            # the divergence the first kernel showed near the winner of an
             # exact table, the one whose argmin the band certifies
             check(near_max <= DIVERGENCE_NEAR_MAX,
                   f"{name}: f32 diverges from f64 by {near_max:.3f} units within "
-                  f"2 bands of the winner, more than {DIVERGENCE_NEAR_MAX}")
+                  f"{NEAR_WINDOW_UNITS:g} units of the winner, more than {DIVERGENCE_NEAR_MAX}")
     headline = results[(torch.float32, True, 1)]
     bound, by = headline["bound"]
     return dict(max_abs_err=max_err, ms=headline["ms"],
@@ -798,9 +820,10 @@ def check_table(torch, sweep, rs, name, args, kw, plain_reps):
     else:
         s2 = rs._point_scale2(args[0], args[1]).double().cpu().numpy()
         c = np.maximum(p_out[fin], 0.0)
-        band = rs._TIE_C * rs._eps_eff(torch.float32) * (
+        band = KERNEL_PLAIN_F32_UNITS * rs._eps_eff(torch.float32) * (
             np.sqrt(np.broadcast_to(s2[:, None], p_out.shape)[fin] * c) + c)
-        check((diff <= band).all(), f"{name}: kernel differs from plain by more than the band")
+        check((diff <= band).all(), f"{name}: kernel differs from plain by more than "
+                                    f"{KERNEL_PLAIN_F32_UNITS} units")
     F, N, M, K = sweep.check_inputs(*args, kw["dense"], kw["outer_stride_test"],
                                     kw["outer_stride_ref"])
     bound, by = sweep_bound(torch, args, kw)
@@ -2757,6 +2780,272 @@ def phase_ops(torch, refine_inputs):
     for name, ok in checks.items():
         check(ok, f"public searches: {name} differ between the card and the CPU")
     return sweep_launches, hb_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+# the float32 band of earlier checkouts (_TIE_C 8, no floor): the flags,
+# repairs and fallbacks it gives are printed beside the derived band's
+OLD_BAND_F32 = (8.0, 0.0)
+
+
+@contextlib.contextmanager
+def f32_band(torch, rs, tie_c, floor):
+    """The f32 certification band of ``ops.rotation_search`` set to
+    ``tie_c`` units and ``floor`` for the block."""
+    saved = rs._TIE_C[torch.float32], rs._TIE_FLOOR_F32
+    rs._TIE_C[torch.float32], rs._TIE_FLOOR_F32 = tie_c, floor
+    try:
+        yield
+    finally:
+        rs._TIE_C[torch.float32], rs._TIE_FLOOR_F32 = saved
+
+
+def band_family(np):
+    """The seeded adversarial sets of tests/test_torch_band.py, f64: per
+    point radius 0.5, 2 and 10 mm, 20-point catheter rings with relative
+    noise 1e-6 and 1e-5 whose test ring is turned by a multiple of 18
+    degrees, and the 16-point quarter-turn set against itself and its 1.01
+    scaling; and the four diagonal points at (+-1.6, +-1.6), which a turn by
+    the f64 grid's -90 degrees maps onto themselves exactly in f64 only.
+    Each a (name, test [F, 20 or 16, 2], ref) batch."""
+    out = []
+    th20 = np.linspace(0, 2 * np.pi, 20, endpoint=False)
+    th16 = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    for radius in (0.5, 2.0, 10.0):
+        rng = np.random.default_rng(int(radius * 1000) + 5)
+        ring = radius * np.stack([np.cos(th20), np.sin(th20)], -1)
+        for noise in (1e-6, 1e-5):
+            refs, tests = [], []
+            for _ in range(6):
+                r = ring + rng.normal(0, noise * radius, ring.shape)
+                a = 2 * np.pi * rng.integers(0, 20) / 20
+                turn = np.array([[np.cos(a), np.sin(a)], [-np.sin(a), np.cos(a)]])
+                refs.append(r)
+                tests.append(r @ turn + rng.normal(0, noise * radius, r.shape))
+            out.append((f"rings r {radius} noise {noise:g}", np.stack(tests), np.stack(refs)))
+        q = radius * (1 + 0.3 * np.cos(4 * th16)) / 1.3
+        sq = np.stack([np.cos(th16) * q, np.sin(th16) * q], -1)
+        out.append((f"quarter-turn r {radius}", np.stack([sq, sq * 1.01, sq]),
+                    np.stack([sq, sq, sq])))
+    diag = np.array([[1.6, 1.6], [-1.6, 1.6], [-1.6, -1.6], [1.6, -1.6]])
+    out.append(("diagonal quarter-turn", diag[None], diag[None]))
+    return out
+
+
+# the family's grids: the coarse ladder stage over +-180 degrees, and a fine
+# grid across +-pi (where the f32 cast of the angle errs most)
+BAND_GRIDS = ((0.0, 1.0, 180.0), (math.pi - 0.01, 0.01, 3.0))
+
+
+def band_tables(torch, sweep, rs, args, kw):
+    """(f64 table, f32 table, f32 scale2) of one cost table's arguments on
+    the card: the kernel on the f64 inputs and on the same inputs cast to
+    f32, as the f32 search casts its sets and its f64 grid."""
+    test, ref, tm, rm, angles, valid = args
+    t64 = sweep.cost_table(test.double(), ref.double(), tm, rm, angles.double(), valid, **kw)
+    t32 = sweep.cost_table(test.float(), ref.float(), tm, rm, angles.float(), valid, **kw)
+    return t64, t32, rs._point_scale2(test.float(), ref.float())
+
+
+def band_check(torch, rs, t64, t32, s2, valid, exact):
+    """Per table: (largest |f32 - f64| in units of the derived bound,
+    entries, rows, rows flagged by the new / old band, f32 argmin != f64
+    argmin, of those unflagged by the new / old band, rows of the f64
+    table flagged by the f64 band and by the same derivation at eps64 with
+    no 1e-14 floor, by the first only and by the second only).  Argmins and
+    flags count on exact tables only (a lower-bound table decides no
+    argmin)."""
+    import numpy as np
+
+    a64 = t64.double().cpu().numpy()
+    a32 = t32.double().cpu().numpy()
+    check((np.isinf(a64) == np.isinf(a32)).all(), "f32 and f64 tables differ in inf slots")
+    sc = s2.double().cpu().numpy()[:, None]
+    fin = np.isfinite(a64)
+    bound = np.broadcast_to(rs._f32_error_bound(np.where(fin, a64, 0.0), sc), a64.shape)
+    err = np.abs(a32[fin] - a64[fin])
+    units = float((err / np.maximum(bound[fin], 1e-300)).max()) if fin.any() else 0.0
+    live = valid.any(dim=1)
+    m = t32.amin(dim=1)
+    flag_new = rs._tie_flags(t32, m, s2, live).cpu().numpy()
+    with f32_band(torch, rs, *OLD_BAND_F32):
+        flag_old = rs._tie_flags(t32, m, s2, live).cpu().numpy()
+    m64 = t64.amin(dim=1)
+    s64 = s2.double()
+    flag64 = rs._tie_flags(t64, m64, s64, live).cpu().numpy()
+    eps64 = float(torch.finfo(torch.float64).eps)
+    native = (rs._TIE_C[torch.float32] * eps64 * (torch.sqrt(torch.clamp(s64 * m64, min=0.0)) + m64)
+              + rs._TIE_FLOOR_F32 * eps64 * eps64 * s64)
+    flag_native = (((t64 <= (m64 + native)[:, None]).sum(dim=1) > 1) & live).cpu().numpy()
+    rows = fin.any(axis=1) & exact
+    swap = rows & (a32.argmin(axis=1) != a64.argmin(axis=1))
+    return np.array([units, int(fin.sum()), int(rows.sum()), int((flag_new & rows).sum()),
+                     int((flag_old & rows).sum()), int(swap.sum()),
+                     int((swap & ~flag_new).sum()), int((swap & ~flag_old).sum()),
+                     int((flag64 & rows).sum()), int((flag_native & rows).sum()),
+                     int((flag64 & ~flag_native & rows).sum()),
+                     int((flag_native & ~flag64 & rows).sum())])
+
+
+def band64_line(res):
+    return (f"f64 rows flagged by the f64 band (1e-14 floor) {int(res[8])}, by the "
+            f"derivation at eps64 {int(res[9])}, by the first only {int(res[10])}, by the "
+            f"second only {int(res[11])}")
+
+
+def band_paths(mt):
+    """The searches the phase drives in f32 and f64: ``(name, run,
+    coordinates of its output)``: the single, full and cohort paths of
+    phases 3, 5 and 7, and the vendored fixtures."""
+    import numpy as np
+
+    from bench import synthetic_oct_pullback
+
+    fixtures = REPO / "tests" / "data" / "fixtures"
+    oct_single = mt.numpy_to_inputdata(*synthetic_oct_pullback(OCT_FRAMES, OCT_POINTS), True,
+                                       label="oct280")
+    full = full_inputs(mt)
+    cohort = cohort_datas(mt)
+    return [
+        ("OCT-280 single", lambda: quiet(mt.from_array_single, oct_single, **MAIN_ARGS),
+         lambda out: lumen_coords(out[0])),
+        ("4 x OCT-280 full", lambda: quiet(mt.from_array_full, *full, **FULL_ARGS),
+         lambda out: pair_coords(out[:4])),
+        ("16 x OCT-280 cohort",
+         lambda: quiet(mt.from_array_cohort, cohort, step_rotation_deg=FULL_STEP,
+                       range_rotation_deg=FULL_RANGE, sample_size=500, smooth=True),
+         lambda out: np.concatenate([lumen_coords(g) for g, _, _ in out])),
+        ("ivus_rest + ivus_stress full",
+         lambda: quiet(mt.from_file_full, str(fixtures / "ivus_rest"),
+                       str(fixtures / "ivus_stress"), write_obj=False),
+         lambda out: pair_coords(out[:4])),
+        # its systolic reference point names no frame of its contours
+        ("ivus_full diastolic single",
+         lambda: quiet(mt.from_file_single, str(fixtures / "ivus_full"), diastole=True,
+                       write_obj=False),
+         lambda out: lumen_coords(out[0])),
+    ]
+
+
+def band_search_run(torch, sweep, rs, run, coords):
+    """One f32 run of a path under the band in force: its repair counters,
+    pruned stages and fallbacks, the f64 re-search tables it launched, the
+    host seconds of its repair spans and the events ms of re-running those
+    f64 tables, and its output coordinates."""
+    from multimodars_torch.ops import argmin_repair
+    from multimodars_torch.utils import trace
+
+    for k in argmin_repair.stats:
+        argmin_repair.stats[k] = 0
+    for k in rs.prune_stats:
+        rs.prune_stats[k] = 0
+    trace.reset()
+    with recorded_tables(sweep) as seen:
+        out = run()
+        torch.cuda.synchronize()
+    stats = {k: argmin_repair.stats.get(k, 0) for k in ("flagged", "repaired", "host_exact",
+                                                        "changed")}
+    stats.update(pruned=rs.prune_stats["stages"], fallbacks=rs.prune_stats["fallbacks"])
+    re64 = [(a, k) for a, k in seen if a[0].dtype == torch.float64]
+    stats["f64_tables"] = len(re64)
+    stats["repair_s"] = sum(v[0] for k, v in trace.summary().items() if "repair" in k)
+    stats["f64_table_ms"] = sum(cuda_ms(torch, lambda: sweep.cost_table(*a, **k), 1)
+                                for a, k in re64)
+    return stats, coords(out)
+
+
+def phase_band(torch, sweep, rs, mt):
+    """The f32 certification band against the f32 kernel's own errors: every
+    cost table of the f64 runs of the band paths, and the adversarial
+    family, on the kernel in f32 and f64; then each path in f32 under the
+    derived band and under the old one."""
+    import numpy as np
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    say("band", f"card: {smi.stdout.strip()}; f32 band {rs._TIE_C[torch.float32]} units + "
+                f"{rs._TIE_FLOOR_F32} eps^2 scale2 (old {OLD_BAND_F32[0]} units, no floor); "
+                f"per-entry bound eps (A r sqrt(c) + B c) + E eps^2 r^2, A {rs._F32_ERR_A}, "
+                f"B {rs._F32_ERR_B}, E {rs._F32_ERR_E}")
+    paths = band_paths(mt)
+    dev = torch.device("cuda", 0)
+    total = np.zeros(12)
+    ref64 = {}
+    for name, run, coords in paths:
+        with mt.config.use(dtype=torch.float64), recorded_tables(sweep) as seen:
+            ref64[name] = coords(run())
+        res = np.zeros(12)
+        for args, kw in seen:
+            kw = dict(dict(dense=False, outer_stride_test=1, outer_stride_ref=1), **kw)
+            t64, t32, s2 = band_tables(torch, sweep, rs, args, kw)
+            exact = kw["outer_stride_test"] == kw["outer_stride_ref"] == 1
+            r = band_check(torch, rs, t64, t32, s2, args[5], exact)
+            res = np.concatenate([[max(res[0], r[0])], res[1:] + r[1:]])
+        say("band", f"{name}: {len(seen)} tables of the f64 run, {int(res[1])} entries: "
+                    f"max |f32 - f64| {res[0]:.4f} units of the derived bound; exact-table rows "
+                    f"{int(res[2])}, flagged new / old band {int(res[3])} / {int(res[4])}; "
+                    f"f32 argmin != f64 argmin {int(res[5])}, unflagged new {int(res[6])}, "
+                    f"old {int(res[7])}; {band64_line(res)}")
+        total = np.concatenate([[max(total[0], res[0])], total[1:] + res[1:]])
+    for name, test, ref in band_family(np):
+        res = np.zeros(12)
+        plain_units = 0.0
+        for g in BAND_GRIDS:
+            F = test.shape[0]
+            angles, valid = rs.candidate_angles(
+                torch.full((F,), g[0], dtype=torch.float64, device=dev), g[1], g[2], 180.0)
+            args = (torch.as_tensor(test, device=dev), torch.as_tensor(ref, device=dev),
+                    None, None, angles, valid)
+            kw = dict(dense=True, outer_stride_test=1, outer_stride_ref=1)
+            t64, t32, s2 = band_tables(torch, sweep, rs, args, kw)
+            r = band_check(torch, rs, t64, t32, s2, valid, True)
+            res = np.concatenate([[max(res[0], r[0])], res[1:] + r[1:]])
+            p32 = sweep.cost_table_plain(args[0].float(), args[1].float(), None, None,
+                                         angles.float(), valid, dense=True)
+            plain_units = max(plain_units, band_check(torch, rs, t64, p32, s2, valid, True)[0])
+        say("band", f"family {name}: {int(res[1])} entries, max |f32 - f64| {res[0]:.4f} units "
+                    f"(plain version on the card {plain_units:.4f}); rows {int(res[2])}, "
+                    f"flagged new / old {int(res[3])} / {int(res[4])}; argmin swaps "
+                    f"{int(res[5])}, unflagged new {int(res[6])}, old {int(res[7])}; "
+                    f"{band64_line(res)}")
+        check(plain_units <= 1.0, f"family {name}: the plain f32 table exceeds the bound")
+        total = np.concatenate([[max(total[0], res[0])], total[1:] + res[1:]])
+    say("band", f"all tables: max |f32 - f64| {total[0]:.4f} units of the derived bound over "
+                f"{int(total[1])} entries; f32 argmin != f64 argmin in {int(total[5])} rows, "
+                f"unflagged under the derived band {int(total[6])}, under the old band "
+                f"{int(total[7])}; {band64_line(total)}")
+    check(total[0] <= 1.0, f"an f32 entry is off by {total[0]:.4f} units of the derived bound")
+    check(total[6] == 0, f"{int(total[6])} f32 argmin swaps left unflagged by the band")
+
+    for name, run, coords in paths:
+        got = {}
+        for label, band in (("derived", (rs._TIE_C[torch.float32], rs._TIE_FLOOR_F32)),
+                            ("old", OLD_BAND_F32)):
+            with f32_band(torch, rs, *band):
+                stats, xyz = band_search_run(torch, sweep, rs, run, coords)
+            d = float(np.abs(xyz - ref64[name]).max())
+            got[label] = (stats, d)
+            say("band", f"{name} f32, {label} band: flagged (each re-searched in f64) "
+                        f"{stats['flagged']}, settled in f64 "
+                        f"{stats['repaired'] - stats['host_exact']}, host-exact "
+                        f"{stats['host_exact']}, changed {stats['changed']}; pruned stages "
+                        f"{stats['pruned']}, fallbacks {stats['fallbacks']}; f64 re-search "
+                        f"tables {stats['f64_tables']} ({stats['f64_table_ms']:.4f} ms by "
+                        f"events); repair spans {stats['repair_s']:.4f} s host; max |coord - "
+                        f"f64 run| {d:.3e} mm")
+        new, old = got["derived"][0], got["old"][0]
+        say("band", f"{name}: the derived band's extra work: flagged "
+                    f"{new['flagged'] - old['flagged']:+d}, f64 re-search tables "
+                    f"{new['f64_tables'] - old['f64_tables']:+d} "
+                    f"({new['f64_table_ms'] - old['f64_table_ms']:+.4f} ms), host-exact "
+                    f"{new['host_exact'] - old['host_exact']:+d}, fallbacks "
+                    f"{new['fallbacks'] - old['fallbacks']:+d}, repair spans "
+                    f"{new['repair_s'] - old['repair_s']:+.4f} s")
+        check(got["derived"][1] <= 1e-4,
+              f"{name}: f32 under the derived band differs from f64 by {got['derived'][1]} mm")
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2819,6 +3108,7 @@ def main() -> int:
         ops_sweep_launches, ops_hb_launches = phase_ops(torch, refine_inputs)
         launches += ops_sweep_launches
         hb_launches += ops_hb_launches
+        phase_band(torch, sweep, rs, mt)
     rres["max_abs_err"] = max(rres["max_abs_err"], adversarial_ray_call(torch)["max_abs_err"])
     for name in sorted(sys.modules):
         if name == "jax" or name.startswith(("jax.", "multimodars_tpu")):

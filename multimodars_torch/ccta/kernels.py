@@ -30,7 +30,8 @@ are centred at their float64 bounding-box midpoint and cast to
 ``config.compute_dtype``; every decision the compute dtype's rounding could
 flip is re-decided exactly in float64 on the host (counts of rows with a
 pair in the rounding band, argmins whose runner-up lies within it, sweep
-offsets within ``2 cmin 1e-4 + 1e-12`` of the minimum), so every answer
+offsets within ``2 cmin 1e-4 + 1e-12`` of the minimum, each band widened
+for float32 where its derivation asks), so every answer
 equals the exact host answer.  ``stats`` counts, per primitive, the rows
 evaluated, flagged and re-decided, and the re-decisions that changed the
 device's answer.  Exact-identity set operations (the labeling bookkeeping)
@@ -107,14 +108,59 @@ def _eps() -> float:
     return float(torch.finfo(config.compute_dtype).eps)
 
 
+# The bands of the count, pick and sweep kernels, checked against their
+# f32 arithmetic (csrc/radius_count.cu, nearest.cu, morph_sweep.cu and the
+# plain versions: d2 = ((ax - bx)^2 + (ay - by)^2) + (az - bz)^2, every op
+# rounded, no FMA) on centred sets whose coordinates are within c = maxc.
+# Casting a and b to f32 moves each difference by <= 2u·c a coordinate,
+# sqrt(3)·eps·c in all (u = eps / 2); rounding dx, dy, dz adds eps·d^2 and
+# the three squares and two sums 1.5 eps·d^2.  So an entry is within
+#   eps·(3.47 c·d + 2.51 d^2) + 3 eps^2 c^2                            (*)
+# of the f64 one (2 sqrt(3) = 3.464 and 2.5 rounded up for the O(eps)
+# growth of each factor).
+
+
 def _radius_band(radius: float, maxc: float) -> Tuple[float, float, float]:
     """(r^2, r^2 - band, r^2 + band): the rounding band of the uncontracted
-    difference-form d^2 on centred coordinates, (24 r maxc + 10 r^2) eps
-    (four times the error of the rounded-input / diff / square / 3-sum
-    chain at |d| ~ r)."""
+    difference-form d^2 on centred coordinates, (24 r maxc + 10 r^2) eps.
+    By (*) a pair at d ~ r is off by eps·(3.47 r c + 2.51 r^2) + 3 eps^2
+    c^2, and the threshold cast to f32 by u·r^2 more: the band holds that
+    wherever r >= 0.15 eps·c (a radius above 2e-6 mm at c = 100 mm)."""
     r2 = radius * radius
     band = (24.0 * radius * maxc + 10.0 * r2) * _eps()
     return r2, r2 - band, r2 + band
+
+
+# The nearest pick's band around the winner m1 (:func:`min_sqdist_pairs`):
+# by (*), with the (3.47 eps c)^2 / 4 of a minimum, a runner-up can swap
+# f32 order with the winner within eps·(6.94 c sqrt(m1) + 5.02 m1) + 53.2
+# eps^2 c^2 (2A (A + sqrt E) + 2E, A = 3.47, E = 6.02).  The (24, 10)
+# units hold the first term 3.5 and 2 times over; a float32 run adds
+# _PICK_FLOOR_F32 eps^2 c^2 for the second, which matters where m1 is near
+# 0: two reference points within ~eps·c of each other and of the row.
+_PICK_FLOOR_F32 = 64.0
+# The morph sweep's band (:func:`_sweep_finish`), on costs sqrt(S), S the
+# mean of the row and column minima of d2 at one offset.  The moved point
+# p + u·x (|u_k| <= 1, |x| <= 2: casts of p, u, x, the product and the sum)
+# and the reference point are off by u·(3c + 8) a coordinate, so by (*)'s
+# steps an entry is within eps·(2 delta d + 2.51 d^2) + 2 eps^2 delta^2,
+# delta = 0.87 (3c + 8); a mean of minima carries it with d -> sqrt(S)
+# (Jensen), and the kernel's fixed-order f32 sums add <= L·u·S, L =
+# ceil(n / 128) + 7 additions on a path.  Two offsets can then swap f32
+# order within 2 eps·(2 delta + 1.42 delta) + (5.02 + L)·eps·cost of the
+# minimum (sqrt(2 eps^2 delta^2) where S is near 0): the relative
+# 2e-4·cmin holds the second term for n up to 2e5 points, and a float32
+# run adds eps·(_SWEEP_C_F32·c + _SWEEP_X_F32) for the first (6.84 delta
+# <= 17.8 c + 47.4), which the relative term alone misses where cmin <
+# 0.011 c + 0.028 mm.
+_SWEEP_C_F32 = 18.0
+_SWEEP_X_F32 = 48.0
+
+
+def _f32_only(value: float) -> float:
+    """``value`` in a float32 run, else 0 (the float64 bands stay the JAX
+    package's)."""
+    return value if config.compute_dtype == torch.float32 else 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +283,8 @@ def min_sqdist_pairs(
         m1 = m1.astype(np.float64)
         m2 = m2.astype(np.float64)
         args = args.copy()
-        band = (24.0 * np.sqrt(np.maximum(m1, 0.0)) * maxc + 10.0 * m1) * _eps()
+        band = (24.0 * np.sqrt(np.maximum(m1, 0.0)) * maxc + 10.0 * m1) * _eps() \
+            + _f32_only(_PICK_FLOOR_F32 * _eps() ** 2 * maxc * maxc)
         ambiguous = (m2 - m1) <= band
         changed = 0
         if ambiguous.any():
@@ -1129,16 +1176,19 @@ def _sweep_launch(states) -> List:
 
 def _sweep_finish(state, costs) -> float:
     """Resolve half of :func:`_grid_sweep_scaling`.  Every offset whose
-    device cost lies within ``2 cmin 1e-4 + 1e-12`` of the minimum is
-    re-evaluated exactly in float64 (the true argmin is provably among
-    them; every offset for non-finite points) and the strict-less,
-    first-wins scan over those picks the winner."""
+    device cost lies within ``2 cmin 1e-4 + 1e-12`` of the minimum (plus
+    the absolute term derived above in a float32 run) is re-evaluated
+    exactly in float64 (the true argmin is provably among them; every
+    offset for non-finite points) and the strict-less, first-wins scan over
+    those picks the winner."""
     if state[0] == "inf":
         return float("inf")
     xs, points, unit, reference = state[1:5]
     if state[0] == "device":
         cmin = float(costs.min())
-        band = 2.0 * cmin * 1e-4 + 1e-12
+        maxc = float(max(np.abs(state[5]).max(), np.abs(state[6]).max()))
+        band = 2.0 * cmin * 1e-4 + 1e-12 \
+            + _f32_only(_eps() * (_SWEEP_C_F32 * maxc + _SWEEP_X_F32))
         cand = np.nonzero(costs <= cmin + band)[0]
         device_pick = int(np.argmin(costs))
     else:

@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 import os
 
+import numpy as np
 import torch
 
 from . import sweep
@@ -88,21 +89,72 @@ def candidate_angles(centers, step_deg: float, range_deg: float, limes_deg: floa
     return _normalize_angle(raw), valid
 
 
-# Argmin-certification band: the maximum cross-backend divergence of one
-# candidate's squared-Hausdorff cost computed in ``dtype``.  Each distance
-# element carries absolute error ~ C·eps·r·sqrt(d2) + C·eps·d2 (r = point
-# scale; the sqrt term dominates for small costs because dx is a difference
-# of O(r) quantities), and min/max reductions add nothing.  Two candidates
-# whose costs differ by less than twice this can swap argmin order between
-# backends, which moves the output geometry by a whole grid step.  Flagged
-# searches are re-decided by the same kernel in f64 and then in exact host
-# f64 (ops.argmin_repair), making the final angle backend-independent.
+# Argmin-certification band.  A search whose winning cost m has another
+# candidate within ``_band(m, scale2)`` is flagged and re-decided by the
+# same kernel in f64, then in exact host f64 (ops.argmin_repair); a search
+# that is not flagged keeps its answer.  So the band must hold every
+# candidate whose cost can change places with the winner's between this
+# dtype's table and the f64 one, which moves the output by a grid step.
 #
-# The constant and the f64 floor of _eps_eff are the JAX package's values,
-# kept so that CPU parity with it holds.  Their calibration on this card's
-# f32 kernel is open: chip_smoke.py prints the measured divergence in units
-# of this band.
-_TIE_C = 8.0
+# float32: derived from the arithmetic that makes the f32 tables, the
+# card's csrc/sweep_cost.cu and the plain ops/sweep.py::cost_table_plain.
+# The inputs are f64: grid angles theta in [-pi, pi] and centred points
+# of radius <= r (r^2 = _point_scale2).  eps = 2^-23, u = eps / 2.  An f32
+# entry's rotated test point, less its reference point, is displaced from
+# the f64 one by at most a·eps·r, a the sum of:
+#   theta cast to f32: |dtheta| <= half an ulp of pi = eps, moving the
+#     rotated point by <= eps·r                                      1
+#   cosf / sinf: 2 ulp each (CUDA Math API, the kernel and the plain
+#     version's torch.cos / torch.sin on the card; the CPU's are within
+#     1 ulp), <= 2 eps |cos|, 2 eps |sin|; the matrix error
+#     dc·I + ds·J moves a point by sqrt(dc^2 + ds^2)·|t| <= 2 eps·r   2
+#   x·c - y·s, x·s + y·c, each op rounded (__fmul_rn / __fsub_rn /
+#     __fadd_rn; separate tensor ops in the plain version): the products
+#     u·(|x c| + |y s|, |x s| + |y c|), norm <= sqrt(2)·u·r, and the sum or
+#     difference u·|R t| <= u·r                           (1 + sqrt 2) / 2
+#   the test point and the reference point cast to f32: u·r each       1
+#                                                              a = 5.2071
+# With D the f64 difference vector, d = |D|, the f32 difference D' has
+# |D'|^2 - d^2 <= 2·d·a·eps·r + (a·eps·r)^2.  Then
+#   dx, dy rounded: |D''|^2 <= (1 + u)^2 |D'|^2                  eps·d^2
+#   fma(dx, dx, dy·dy): u·dy^2 + u·d^2; the plain version's unfused
+#     dx·dx + dy·dy: u·dx^2 + u·dy^2 + u·d^2; both <= 2u·d^2      eps·d^2
+# So each entry's d2 is within eps·(A·r·d + B·d^2) + E·eps^2·r^2 of the
+# f64 one, A = 2a = 10.4142, B = 2, E = a^2 = 27.11.  The f64 table's own
+# error is 2^-29 of that, and the O(eps) growth of every factor (|t| of
+# the cast point, |c'| <= (1 + 4u)|c|, the f32 scale2 below r^2 by <= 4u,
+# the cross terms u·d·a·eps·r) moves A and B by < 1e-5 relative:
+# _F32_ERR_A = 10.42 and _F32_ERR_B = 2.01 round them up.  A table entry
+# is a max of mins of such d2, and min and max are 1-Lipschitz, so a cost
+# carries the same bound; where d2 - bound(d2) is not increasing (d2 <
+# (A eps r / 2)^2) its least value adds (A eps r)^2 / 4 = 27.14 eps^2 r^2
+# to E: :func:`_f32_error_bound` with _F32_ERR_E = 56 >= 27.11 + 27.14.
+#
+# Two-sided: if candidate k precedes the f32 winner w in f64 order
+# (c64_k <= c64_w), then c32_k - m <= 2·bound(c64_w) with m = c32_w, and
+# c64_w <= m + bound(c64_w) gives sqrt(c64_w) <= sqrt(m) + (A + sqrt E)
+# eps·r, to first order.  So
+#   c32_k - m <= eps·(2A·r·sqrt(m) + 2B·m) + (2A (A + sqrt E) + 2E) eps^2 r^2
+#             = eps·(20.84 r sqrt(m) + 4.02 m) + 485.1 eps^2 r^2,
+# and the f32 band is _TIE_C·eps·(r·sqrt(m) + m) + _TIE_FLOOR_F32·eps^2·r^2
+# with _TIE_C = 24 and _TIE_FLOOR_F32 = 512.  Of the 3.16 units over
+# 20.84, one pays for the f32 rounding of m + band (<= u·(m + band), and
+# m <= 4 r^2 so u·m <= eps·r·sqrt(m)); the rest is margin.  The floor
+# matters only for costs near 0: sets congruent under a grid angle, where
+# the f32 winner can cost exactly 0 and the f64 one sit at a lower index
+# (tests/test_torch_band.py pins such a case).
+#
+# float64: the JAX package's band (8 units of max(eps, 1e-14), no floor),
+# kept so that the CPU's f64 tie flags stay equal to the JAX package's.
+# Its 1e-14 floor covered the TPU's emulated f64.  On the card's native
+# f64 the same count needs eps64·20.84·r·sqrt(m) + 485·eps64^2·r^2 (eps64 =
+# 2.2e-16), under the band's 8e-14·r·sqrt(m) wherever m > 1e-31·r^2: the
+# band is sound there too, and wider than it needs, but for exact ties.
+_TIE_C = {torch.float32: 24.0, torch.float64: 8.0}
+_TIE_FLOOR_F32 = 512.0
+_F32_ERR_A = 10.42
+_F32_ERR_B = 2.01
+_F32_ERR_E = 56.0
 
 
 def _eps_eff(dtype):
@@ -112,11 +164,23 @@ def _eps_eff(dtype):
     return max(float(torch.finfo(dtype).eps), 1e-14)
 
 
+def _f32_error_bound(cost, scale2):
+    """The derived bound on ``|cost_f32 - cost_f64|`` of a cost table
+    entry (numpy arrays): ``cost`` the f64 cost, ``scale2`` the pair's
+    squared point radius (see the derivation above)."""
+    e = _eps_eff(torch.float32)
+    root = np.sqrt(np.maximum(scale2 * cost, 0.0))
+    return e * (_F32_ERR_A * root + _F32_ERR_B * cost) + _F32_ERR_E * e * e * scale2
+
+
 def _band(m, scale2):
-    """Certification band around the winning cost ``m`` [F]."""
-    eps = torch.tensor(_eps_eff(m.dtype), dtype=m.dtype, device=m.device)
-    zero = torch.zeros((), dtype=m.dtype, device=m.device)
-    return _TIE_C * eps * (torch.sqrt(torch.maximum(scale2 * m, zero)) + m)
+    """Certification band around the winning cost ``m`` [F] in the dtype
+    of ``m`` (see above)."""
+    eps = _eps_eff(m.dtype)
+    band = _TIE_C[m.dtype] * eps * (torch.sqrt(torch.clamp(scale2 * m, min=0.0)) + m)
+    if m.dtype == torch.float32:
+        band = band + _TIE_FLOOR_F32 * eps * eps * scale2
+    return band
 
 
 def _tie_flags(costs, m, scale2, any_valid):
@@ -197,6 +261,10 @@ _PRUNE_MIN_POINTS = 128
 _PRUNE_STRIDE = 6
 _PRUNE_TOP = 12
 
+#: pruned stages run in this process, and those whose certificate failed
+#: (the stage then sweeps every candidate exactly)
+prune_stats = {"stages": 0, "fallbacks": 0}
+
 
 def _prune_enabled() -> bool:
     return os.environ.get("MMTPU_NO_PRUNE", "0") != "1"
@@ -266,8 +334,10 @@ def search_range_batched_pruned(
     # m <= 0 certifies the answer but exact zero ties still need repair
     zero_tie = (m <= 0.0) & ((exact <= 0.0).sum(dim=1) > 1) & any_valid
 
+    prune_stats["stages"] += 1
     if bool(cert.all()):
         return pruned_answer, tie_eval | zero_tie
+    prune_stats["fallbacks"] += 1
     costs = rotation_cost_table(
         test, ref, test_mask, ref_mask, angles.to(test.dtype), valid, dense
     )

@@ -530,9 +530,29 @@ def exact_candidate_sq(cand: np.ndarray, filt: np.ndarray) -> float:
     return max(fwd, float(bwd.max()))
 
 
+# The refine's certification band, derived as the sweep's
+# (ops/rotation_search.py) from the f32 arithmetic of its table
+# (csrc/hausdorff_batch.cu and its plain version, bit for bit): both
+# sets are host f64 cast to f32 (u·R each, R^2 = scale2, u = eps / 2), d2 =
+# dx·dx + dy·dy unfused (dx, dy rounded: eps·d^2; the products and the sum:
+# eps·d^2).  So an entry is within eps·(2.01 R d + 2.01 d^2) + 2.1 eps^2 R^2
+# of the f64 one (E: (eps R)^2 and the (A eps R)^2 / 4 of the min), and
+# two candidates can swap f32 order within eps·(4.02 R sqrt(m) + 4.02 m) +
+# 18.1 eps^2 R^2 of the winner m (2A (A + sqrt E) + 2E).  The 64 units hold
+# the first term 16 times over; _REFINE_FLOOR_F32 = 32 >= 18.1 holds the
+# second where m is near 0.  float64: the JAX package's 64 units of
+# max(eps, 1e-14), no floor.
+_REFINE_C = 64.0
+_REFINE_FLOOR_F32 = 32.0
+
+
 def _refine_band(costs_sq: np.ndarray, dtype, scale2: float) -> float:
     m2 = float(costs_sq.min())
-    return m2 + 64.0 * _eps_eff(dtype) * (math.sqrt(max(scale2 * m2, 0.0)) + m2)
+    eps = _eps_eff(dtype)
+    band = _REFINE_C * eps * (math.sqrt(max(scale2 * m2, 0.0)) + m2)
+    if dtype == torch.float32:
+        band += _REFINE_FLOOR_F32 * eps * eps * scale2
+    return m2 + band
 
 
 #: what the last refine evaluated: grid shape, the winner's (shift slot,

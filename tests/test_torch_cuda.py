@@ -29,6 +29,11 @@ from multimodars_torch.pipelines import align_between
 
 pytestmark = pytest.mark.cuda
 
+# the f32 kernel against its plain version, in units eps32*(sqrt(scale2*c)+c)
+# of each cost c: the value of the certification band of earlier checkouts,
+# kept as the tolerance when the band was derived anew (ops/rotation_search.py)
+KERNEL_PLAIN_F32_UNITS = 8.0
+
 
 @pytest.fixture
 def cuda():
@@ -89,7 +94,7 @@ def test_kernel_matches_plain(cuda):
                 else:
                     w = want[fin]
                     s2f = np.broadcast_to(s2[:, None], want.shape)[fin]
-                    band = rs._TIE_C * rs._eps_eff(torch.float32) * (
+                    band = KERNEL_PLAIN_F32_UNITS * rs._eps_eff(torch.float32) * (
                         np.sqrt(s2f * w) + w
                     )
                     assert (np.abs(got[fin] - w) <= band).all()
@@ -210,7 +215,7 @@ def test_kernel_matches_plain_at_between_shapes(cuda, widths, dtype):
         else:
             w = want[fin]
             s2f = np.broadcast_to(s2[:, None], want.shape)[fin]
-            band = rs._TIE_C * rs._eps_eff(torch.float32) * (np.sqrt(s2f * w) + w)
+            band = KERNEL_PLAIN_F32_UNITS * rs._eps_eff(torch.float32) * (np.sqrt(s2f * w) + w)
             assert (np.abs(got[fin] - w) <= band).all()
 
 
@@ -279,7 +284,7 @@ def test_kernel_matches_plain_at_ragged_shapes(cuda, case, dtype):
         else:
             w = want[fin]
             s2f = np.broadcast_to(s2[:, None], want.shape)[fin]
-            band = rs._TIE_C * rs._eps_eff(torch.float32) * (np.sqrt(s2f * w) + w)
+            band = KERNEL_PLAIN_F32_UNITS * rs._eps_eff(torch.float32) * (np.sqrt(s2f * w) + w)
             assert (np.abs(got[fin] - w) <= band).all()
     exact = tables[(1, 1)]
     for lb in (tables[(6, 6)], tables[(1, 6)]):
