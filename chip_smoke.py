@@ -69,7 +69,16 @@ Phases:
    (one bounded-flags count launch per branch, one nearest launch per tree
    for up to 8 walks), region sizes, anchors per walk, contour counts and
    reference triplets printed, f32 card = f64 card = f64 CPU exactly, the
-   recorded calls against plain, wall clock and spans
+   recorded calls against plain, wall clock and spans; then the same path
+   on the benchmark's scale-5 case (160,006 vertices, 320,000 faces) in
+   f32 and f64 on the card and f64 on the CPU (the same regions, scalings
+   and stitched mesh), launches and certification counted, each kernel
+   against plain on the run's calls, the ray pass's two routes timed whole
+   on its rays and the route ``_RAY_NATIVE_THRESHOLD`` picks, wall clock
+   (median of 3 after 1 warm-up); and a vessel tree with six side branches
+   (9 walks, past the 8 of one nearest launch): nearest launches a tree
+   equal to ceil(walks / 8), the batched pick equal to each walk picked
+   alone on the card, f32 card = f64 card = f64 CPU exactly
 9. multi-device execution on meshes naming the card 1, 2 and 4 times (one
    CUDA stream a shard; every card too where there are several):
    ``from_array_cohort(devices=...)`` on phase 7's cohort (the same angles
@@ -118,9 +127,26 @@ Phases:
     then each of those paths in f32 under the derived and the old band:
     flags, f64 re-searches, host-exact repairs, pruned-stage fallbacks,
     the host time of the repair spans and the events time of the f64
-    re-search tables, and the coordinates within 1e-4 mm of the f64 run
+    re-search tables, and the coordinates within 1e-4 mm of the f64 run;
+    the real-fixture case of phase 12 among the paths; on every exact table
+    and the family, the card kernel's f64 argmin against the plain
+    version's f64 argmin on the CPU (rows that differ must be flagged by
+    the f64 band in force, the JAX package's; the derived f64 band's flags
+    printed beside)
+12. the real-fixture pullback (run before phase 11): 280 frames built from
+    94 twisted copies of the vendored ivus_rest diastolic contours (3
+    frames x 501 points, bench.py's construction), ``from_array_single``
+    at phase 3's arguments in f32 and f64 on the card and f64 on the CPU:
+    the same grid index in every within pair (a searched f32 angle on
+    another index flagged and settled), coordinates within 1e-4 mm, repair
+    and pruning counters, the exact host ladder on every flagged and every
+    14th pair, the kernel against plain at the case's tables, wall clock
+    and spans; then ``from_array_full`` on four such pullbacks (ivus_rest
+    and ivus_stress, diastole and systole) with phase 5's checks
 
-Every phase prints its lines; any failure exits non-zero.  The line before
+Every phase prints its lines and its peak device memory (``[mem]``); every
+line after phase 1's names the card and its power limit; any failure exits
+non-zero.  The line before
 the last is the kernel summary JSON, the last line is
 ``{"ok": true, "device": {...}}``.  ``--only kernel`` stops after phase 2
 and holds the refine kernel and the four CCTA kernels against plain on
@@ -174,13 +200,123 @@ class SmokeFailure(Exception):
     pass
 
 
+def synthetic_oct_pullback(n_frames=OCT_FRAMES, n_points=OCT_POINTS, seed=7):
+    """OCT-like pullback: smooth elliptic lumens with per-frame rotation and
+    drift, frame 0 carrying the reference point (bench.py's builder,
+    copied: bench.py loads the JAX package's shim).  Returns (lumen rows
+    [frame, x, y, z], reference point)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    theta = np.linspace(0.0, 2.0 * math.pi, n_points, endpoint=False)
+    rows = []
+    rot = 0.0
+    cx, cy = 4.5, 4.5
+    for f in range(n_frames):
+        rot += rng.uniform(-0.08, 0.08)
+        cx += rng.uniform(-0.02, 0.02)
+        cy += rng.uniform(-0.02, 0.02)
+        a = 2.0 + 0.2 * math.sin(f / 17.0)
+        b = 1.4 + 0.2 * math.cos(f / 23.0)
+        wobble = 0.08 * np.sin(5 * theta + f / 5.0)
+        r_x = (a + wobble) * np.cos(theta)
+        r_y = (b + wobble) * np.sin(theta)
+        x = cx + r_x * math.cos(rot) - r_y * math.sin(rot)
+        y = cy + r_x * math.sin(rot) + r_y * math.cos(rot)
+        z = np.full(n_points, f * 0.2)
+        frame_col = np.full(n_points, f)
+        rows.append(np.stack([frame_col, x, y, z], axis=-1))
+    lumen = np.concatenate(rows)
+    ref = np.array([0, cx + 3.0, 4.5, 0.0])
+    return lumen, ref
+
+
+FIXTURES = REPO / "tests" / "data" / "fixtures"
+REAL_CASE = "real-fixture-280 (94 twisted copies of ivus_rest's 3 diastolic frames)"
+# phase 12's four pullbacks: (label, fixture, contour file, diastole)
+REAL_PHASES = (("rest_dia", "ivus_rest", "diastolic_contours.csv", True),
+               ("rest_sys", "ivus_rest", "systolic_contours.csv", False),
+               ("stress_dia", "ivus_stress", "diastolic_contours.csv", True),
+               ("stress_sys", "ivus_stress", "systolic_contours.csv", False))
+
+
+def real_fixture_pullback(csv, n_frames=OCT_FRAMES, ref_frame=0):
+    """An ``n_frames``-frame pullback built from real clinical contours: the
+    construction of bench.py's ``real_data_pullback_280``, copied, on a
+    vendored contour file (3 frames x 501 points).  Z-shifted copies of its
+    frames, each copy c turned by 0.04 c rad about each frame's centroid,
+    so that every frame boundary, the seams included, carries alignment
+    work; cut to ``n_frames``.  The reference point is bench.py's, taken
+    from frame ``ref_frame`` (bench.py: frame 0).  Returns (lumen rows
+    [frame, x, y, z], reference point)."""
+    import numpy as np
+
+    raw = np.genfromtxt(csv, delimiter=",")
+    if raw.ndim != 2 or raw.shape[1] != 4:
+        raw = np.genfromtxt(csv, delimiter="\t")
+    frames = np.unique(raw[:, 0])
+    n_src = len(frames)
+    z_span = raw[:, 3].max() - raw[:, 3].min()
+    spacing = z_span / max(n_src - 1, 1)
+    copies = int(np.ceil(n_frames / n_src))
+    rows = []
+    fid = 0
+    for c in range(copies):
+        rot = 0.04 * c  # radians; deterministic per-copy twist
+        cr, sr = math.cos(rot), math.sin(rot)
+        for f in frames:
+            if fid >= n_frames:
+                break
+            sel = raw[raw[:, 0] == f]
+            x, y = sel[:, 1], sel[:, 2]
+            cx, cy = x.mean(), y.mean()
+            xr = cx + (x - cx) * cr - (y - cy) * sr
+            yr = cy + (x - cx) * sr + (y - cy) * cr
+            z = sel[:, 3] + c * (z_span + spacing)
+            rows.append(np.column_stack([np.full(len(sel), fid), xr, yr, z]))
+            fid += 1
+    lumen = np.concatenate(rows)
+    first = rows[ref_frame]
+    ref = np.array([ref_frame, first[:, 1].max() + 1.0, first[:, 2].mean(), first[0, 3]])
+    return lumen, ref
+
+
+def real_fixture_arrays(n_frames=OCT_FRAMES):
+    """The four pullbacks of phase 12's four-phase path (rest and stress,
+    diastole and systole), each built by :func:`real_fixture_pullback` from
+    its fixture's contours: (label, lumen rows, reference point, diastole)
+    each.  Each takes its reference point on the last frame that copies the
+    fixture's last frame, where the fixture's own reference points lie:
+    with frame 0's, the postprocessing of both packages finds no reference
+    frame after resampling these irregular z gaps, and on an earlier frame
+    it indexes past the pair's frames."""
+    out = []
+    for label, fixture, name, diastole in REAL_PHASES:
+        n_src = 3  # frames of each vendored contour file
+        ref_frame = n_src * (n_frames // n_src) - 1
+        lumen, ref = real_fixture_pullback(FIXTURES / fixture / name, n_frames, ref_frame)
+        out.append((label, lumen, ref, diastole))
+    return out
+
+
+def real_fixture_datas(mt, n_frames=OCT_FRAMES):
+    """:func:`real_fixture_arrays` as the package ``mt``'s input data."""
+    return [mt.numpy_to_inputdata(lumen, ref, diastole, label=label)
+            for label, lumen, ref, diastole in real_fixture_arrays(n_frames)]
+
+
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
 
 
+# the card's name and power limit as nvidia-smi reads them (phase 1), named
+# on every line after it
+CARD = None
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}] {msg}" + (f" ({CARD})" if CARD else ""), flush=True)
 
 
 def quiet(fn, *args, **kwargs):
@@ -207,26 +343,36 @@ def cuda_ms(torch, fn, reps):
     return sorted(times)[1]
 
 
+# profiler windows device_ms opens before it gives up: the tracer has
+# returned a window with none of its kernels (one smoke run of PR 14 on an
+# H100, in phase 10, where every other run saw them)
+PROFILE_WINDOWS = 3
+
+
 def device_ms(torch, fn, name, calls=20):
     """Device ms a launch of the kernels whose name holds ``name``: the
     mean of torch.profiler's device-side events over ``calls`` calls after
     a warm-up call (the kernel's own time, without the host's; the tracer
-    may drop a window's first events, so it averages the launches seen)."""
+    may drop a window's first events, so it averages the launches seen, and
+    opens another window, up to PROFILE_WINDOWS, where it saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if name in evt.key:
-            got = getattr(evt, "device_time_total", None)
-            total += evt.cuda_time_total if got is None else got
-            count += evt.count
-    check(count > 0, f"the profiler saw no {name} kernel")
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            if name in evt.key:
+                got = getattr(evt, "device_time_total", None)
+                total += evt.cuda_time_total if got is None else got
+                count += evt.count
+        if count:
+            break
+    check(count > 0, f"the profiler saw no {name} kernel in {PROFILE_WINDOWS} windows")
     return total / 1e3 / count
 
 
@@ -242,6 +388,18 @@ def refine_plan_line(torch, hb, p, q):
             f"{plan.rows_per_thread}, rows from {'q' if plan.swap else 'p'}; "
             f"{info['registers']} registers, {info['local_bytes']} spilled bytes a thread, "
             f"{info['blocks_per_sm'][plan.warps - 1]} resident blocks an SM")
+
+
+@contextlib.contextmanager
+def peak_memory(torch, phase):
+    """Print the peak device memory the block allocated, in MiB (its peak
+    reset just before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    yield
+    torch.cuda.synchronize()
+    say("mem", f"phase {phase}: peak device memory "
+               f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB allocated")
 
 
 def card_state():
@@ -388,6 +546,8 @@ def phase_environment(torch, sweep, hb, ccta_ops):
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip(), flush=True)
+    global CARD
+    CARD = smi.stdout.strip()
     say("env", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
                f"device {torch.cuda.get_device_name(0)}, "
                f"count {torch.cuda.device_count()}")
@@ -420,22 +580,29 @@ def phase_environment(torch, sweep, hb, ccta_ops):
 # phase 2
 # ---------------------------------------------------------------------------
 
-def oct_sample_sets():
-    """The [280, 520, 2] centered sample sets the main path sweeps for the
-    OCT-280 pullback (500 lumen points + the 20-point catheter ring)."""
-    from bench import synthetic_oct_pullback
+def sample_sets(lumen, ref, label):
+    """The centered sample sets [frames, 500 + 20, 2] (or with a mask) the
+    single path sweeps for a pullback (lumen rows and reference point) at
+    MAIN_ARGS: 500 lumen points and the 20-point catheter ring.  Returns
+    (sets, mask or None)."""
     from multimodars_torch import numpy_to_inputdata
     from multimodars_torch._processing import _to_inputdata
     from multimodars_torch.io.build import build_any_from_inputdata
     from multimodars_torch.pipelines.align_within import _validate_and_pack
 
-    lumen, ref = synthetic_oct_pullback(OCT_FRAMES, OCT_POINTS)
-    data = numpy_to_inputdata(lumen, ref, True, label="oct280")
+    data = numpy_to_inputdata(lumen, ref, True, label=label)
     tg = build_any_from_inputdata(
-        _to_inputdata(data), None, "oct280", True, (4.5, 4.5), 0.5, 20,
+        _to_inputdata(data), None, label, True, (4.5, 4.5), 0.5, 20,
         verbose=False,
     )
     _obj, _tg, pts, mask = _validate_and_pack(tg, 500)
+    return pts, mask
+
+
+def oct_sample_sets():
+    """The [280, 520, 2] centered sample sets the main path sweeps for the
+    OCT-280 pullback (500 lumen points + the 20-point catheter ring)."""
+    pts, mask = sample_sets(*synthetic_oct_pullback(OCT_FRAMES, OCT_POINTS), "oct280")
     check(mask is None and pts.shape == (OCT_FRAMES, 520, 2),
           f"unexpected sample sets {pts.shape}, mask {mask is not None}")
     return pts
@@ -557,7 +724,6 @@ def lumen_coords(geom):
 def phase_main_path(torch, sweep, mt, profile=False):
     import numpy as np
 
-    from bench import synthetic_oct_pullback
     from multimodars_torch.ops import argmin_repair
     from multimodars_torch.ops.argmin_repair import exact_ladder
     from multimodars_torch.utils import trace
@@ -733,7 +899,6 @@ def phase_cross_device(torch, mt):
 def full_inputs(mt):
     """Four OCT-280 pullbacks from seeds: rest and stress, diastole and
     systole."""
-    from bench import synthetic_oct_pullback
 
     out = []
     for label, seed in FULL_PHASES:
@@ -760,6 +925,43 @@ def recorded_between(align_between):
         yield seen
     finally:
         align_between.between_stage = stage
+
+
+@contextlib.contextmanager
+def recorded_repairs(align_within):
+    """Record what each within chain of a run hands its repair and gets back:
+    (searched relative angles, certification flags, repaired angles), each
+    [pairs], radians."""
+    import numpy as np
+
+    seen = []
+    fn = align_within.repair_chain_deltas
+
+    def spy(delta, flags, *args, **kwargs):
+        out = fn(delta, flags, *args, **kwargs)
+        seen.append((np.array(delta), np.array(flags, dtype=bool), np.array(out)))
+        return out
+
+    align_within.repair_chain_deltas = spy
+    try:
+        yield seen
+    finally:
+        align_within.repair_chain_deltas = fn
+
+
+def grid_steps(rad, step_deg):
+    """Angles (radians) as whole grid steps of ``step_deg``."""
+    import numpy as np
+
+    return np.rint(np.degrees(rad) / step_deg).astype(np.int64)
+
+
+def unsettled_swaps(raw, flags, want, step_deg):
+    """Pairs whose searched angle lands on another grid index than ``want``
+    (the float64 run's answers) without a certification flag; and the
+    count of flagged ones that did."""
+    differ = grid_steps(raw, step_deg) != grid_steps(want, step_deg)
+    return int((differ & ~flags).sum()), int((differ & flags).sum())
 
 
 def pair_coords(pairs):
@@ -792,7 +994,7 @@ def between_tables(torch, rs, clouds, dtype, stride):
     return args, dict(dense=False, outer_stride_test=stride, outer_stride_ref=stride)
 
 
-def check_table(torch, sweep, rs, name, args, kw, plain_reps):
+def check_table(torch, sweep, rs, name, args, kw, plain_reps, phase="full"):
     """Kernel against plain on the same CUDA tensors, and lower bound
     against exact where the table is strided; returns (max abs err, kernel
     ms, plain ms)."""
@@ -827,7 +1029,7 @@ def check_table(torch, sweep, rs, name, args, kw, plain_reps):
     F, N, M, K = sweep.check_inputs(*args, kw["dense"], kw["outer_stride_test"],
                                     kw["outer_stride_ref"])
     bound, by = sweep_bound(torch, args, kw)
-    say("full", f"{name} [F {F}, N {N}, M {M}, K {K}]: kernel {ms:.4f} ms, "
+    say(phase, f"{name} [F {F}, N {N}, M {M}, K {K}]: kernel {ms:.4f} ms, "
                 f"bound {bound:.4f} ms ({by}), {100.0 * bound / ms:.1f}% of bound "
                 f"(card after: {card_state()}), "
                 f"plain {plain_ms:.3f} ms, max |kernel-plain| {err:.3e} "
@@ -900,15 +1102,20 @@ def phase_full_kernel(torch, sweep, rs, mt, clouds):
     return max(err, e)
 
 
-def phase_full_path(torch, sweep, mt, profile=False):
+def phase_full_path(torch, sweep, mt, profile=False, datas=None, tag="full", warm=2, reps=5):
+    """``from_array_full`` on four pullbacks (default: 4 x OCT-280), f32
+    and f64 on the card, wall clock the median of ``reps`` runs after
+    ``warm`` warm-ups; lines tagged ``tag``."""
     import numpy as np
 
     from multimodars_torch.ops import argmin_repair
+    from multimodars_torch.ops import rotation_search as rs
     from multimodars_torch.ops.argmin_repair import exact_ladder
     from multimodars_torch.pipelines import align_between
     from multimodars_torch.utils import trace
 
-    datas = full_inputs(mt)
+    if datas is None:
+        datas = full_inputs(mt)
     check(mt.config.compute_dtype == torch.float32,
           f"compute dtype {mt.config.compute_dtype}")
 
@@ -918,20 +1125,27 @@ def phase_full_path(torch, sweep, mt, profile=False):
         return out
 
     def counters():
-        return {k: argmin_repair.stats.get(k, 0)
-                for k in ("flagged", "repaired", "changed", "host_exact")}
+        return dict({k: argmin_repair.stats.get(k, 0)
+                     for k in ("flagged", "repaired", "changed", "host_exact")},
+                    pruned=rs.prune_stats["stages"], fallbacks=rs.prune_stats["fallbacks"])
+
+    def reset():
+        reset_counters(sweep, argmin_repair, trace)
+        for k in rs.prune_stats:
+            rs.prune_stats[k] = 0
 
     # the counted run: every launch count set to 0 just before it
-    reset_counters(sweep, argmin_repair, trace)
+    reset()
     with recorded_between(align_between) as stages32, recorded_tables(sweep) as tables:
         t0 = time.perf_counter()
         out32 = run()
         first_s = time.perf_counter() - t0
     launches, masked = sweep.launches, sweep.masked_launches
     stats32 = counters()
-    say("full", f"from_array_full 4 x OCT-280 f32: {first_s:.3f} s (first run), "
-                f"sweep launches {launches} ({launches - masked} dense, "
-                f"{masked} masked), repair counters {stats32}")
+    n_frames = len(datas[0].lumen)
+    say(tag, f"from_array_full 4 x {n_frames} frames f32: {first_s:.3f} s (first run), "
+             f"sweep launches {launches} ({launches - masked} dense, "
+             f"{masked} masked), repair counters {stats32}")
     check(launches - masked > 0, "the full path launched no dense table")
     check(masked > 0, "the full path launched no masked table")
 
@@ -940,11 +1154,11 @@ def phase_full_path(torch, sweep, mt, profile=False):
         "rest_dia - rest_sys", "stress_dia - stress_sys",
         "rest_dia - stress_dia", "rest_sys - stress_sys"],
         f"pair labels {[p.label for p in pairs32]}")
-    check([len(l) for l in logs32] == [OCT_FRAMES - 1] * 4,
+    check([len(l) for l in logs32] == [n_frames - 1] * 4,
           f"log lengths {[len(l) for l in logs32]}")
     for pair in pairs32:
         n_a, n_b = len(pair.geom_a.frames), len(pair.geom_b.frames)
-        check(n_a == n_b and 0 < n_a <= OCT_FRAMES,
+        check(n_a == n_b and 0 < n_a <= n_frames,
               f"{pair.label}: {n_a} and {n_b} frames after postprocessing")
     c32 = pair_coords(pairs32)
     check(np.isfinite(c32).all(), "output coordinates not finite")
@@ -952,8 +1166,7 @@ def phase_full_path(torch, sweep, mt, profile=False):
     win32 = np.concatenate([st[1] for st in stages32])
     clouds32 = [c for st in stages32 for c in st[2]]
 
-    for k in argmin_repair.stats:
-        argmin_repair.stats[k] = 0
+    reset()
     with mt.config.use(dtype=torch.float64), recorded_between(align_between) as stages64:
         out64 = run()
     stats64 = counters()
@@ -971,17 +1184,17 @@ def phase_full_path(torch, sweep, mt, profile=False):
     same_between = bool(np.array_equal(grid_index(win32), grid_index(win64)))
     frames_equal = [len(p.geom_a.frames) for p in pairs32] == [
         len(p.geom_a.frames) for p in out64[:4]]
-    say("full", f"f64 run: repair counters {stats64}; f32 vs f64: same grid angle "
-                f"in every within pair {same_within} (max |rot diff| {d_rot:.3e} deg); "
-                f"between winners (deg) f32 {np.degrees(win32).round(6).tolist()}, "
-                f"f64 {np.degrees(win64).round(6).tolist()}, grid indices "
-                f"{grid_index(win32).tolist()} vs {grid_index(win64).tolist()}, "
-                f"same {same_between}; frame counts equal {frames_equal}")
+    say(tag, f"f64 run: repair counters {stats64}; f32 vs f64: same grid angle "
+             f"in every within pair {same_within} (max |rot diff| {d_rot:.3e} deg); "
+             f"between winners (deg) f32 {np.degrees(win32).round(6).tolist()}, "
+             f"f64 {np.degrees(win64).round(6).tolist()}, grid indices "
+             f"{grid_index(win32).tolist()} vs {grid_index(win64).tolist()}, "
+             f"same {same_between}; frame counts equal {frames_equal}")
     check(same_within, "f32 and f64 within logs land on different grid angles")
     check(same_between, "f32 and f64 between winners land on different grid indices")
     check(frames_equal, "f32 and f64 runs kept different frame counts")
     d_xyz = float(np.abs(c32 - pair_coords(out64[:4])).max())
-    say("full", f"f32 vs f64 max |coord diff| over the four pairs {d_xyz:.3e} mm")
+    say(tag, f"f32 vs f64 max |coord diff| over the four pairs {d_xyz:.3e} mm")
     check(d_xyz <= 1e-4, f"f32 vs f64 coordinates differ by {d_xyz} mm")
 
     # the four between winners against the exact host f64 ladder on the
@@ -993,27 +1206,27 @@ def phase_full_path(torch, sweep, mt, profile=False):
         check(abs(math.degrees(want - w)) < 1e-4,
               f"between slot {k}: port {math.degrees(w)} deg, exact host ladder "
               f"{math.degrees(want)} deg")
-    say("full", f"exact host f64 ladder agrees on the four between winners "
-                f"(clouds {[len(c[0]) for c in clouds32]} x {[len(c[1]) for c in clouds32]} "
-                f"points, {time.perf_counter() - t0:.1f} s)")
-    report_tables(torch, sweep, "full", tables)
+    say(tag, f"exact host f64 ladder agrees on the four between winners "
+             f"(clouds {[len(c[0]) for c in clouds32]} x {[len(c[1]) for c in clouds32]} "
+             f"points, {time.perf_counter() - t0:.1f} s)")
+    report_tables(torch, sweep, tag, tables)
 
-    for _ in range(2):
+    for _ in range(warm):
         run()
     trace.reset()
     times = []
-    for _ in range(5):
+    for _ in range(reps):
         t0 = time.perf_counter()
         run()
         times.append(time.perf_counter() - t0)
-    med = sorted(times)[2]
-    say("full", f"wall clock f32, median of 5 after 2 warm-ups: {med:.4f} s "
-                f"(runs {', '.join(f'{t:.4f}' for t in times)})")
-    say("full", "spans per run, mean of those runs (s, calls): " + ", ".join(
-        f"{k} {v[0] / 5:.4f} (x{v[1] // 5})"
+    med = sorted(times)[reps // 2]
+    say(tag, f"wall clock f32, median of {reps} after {warm} warm-ups: {med:.4f} s "
+             f"(runs {', '.join(f'{t:.4f}' for t in times)})")
+    say(tag, "spans per run, mean of those runs (s, calls): " + ", ".join(
+        f"{k} {v[0] / reps:.4f} (x{v[1] // reps})"
         for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
     if profile:
-        profile_main_path(torch, run, "full_profile.json")
+        profile_main_path(torch, run, f"{tag}_profile.json")
     return launches, clouds32, pairs32[0]
 
 
@@ -1319,7 +1532,6 @@ COHORT_SEEDS = tuple(range(7, 23))
 
 def cohort_datas(mt):
     """The cohort's 16 OCT-280 pullbacks, seeds COHORT_SEEDS."""
-    from bench import synthetic_oct_pullback
 
     datas = []
     for seed in COHORT_SEEDS:
@@ -1502,12 +1714,12 @@ def _line(p0, p1, n):
     return np.linspace(np.asarray(p0, float), np.asarray(p1, float), n)
 
 
-def ccta_case(mt):
+def ccta_case(mt, scale=None):
     """(mesh, aorta / RCA / LCA centerline arrays, IV geometry) of the
-    benchmark's build_case(CCTA_SCALE)."""
+    benchmark's build_case(scale) (default CCTA_SCALE)."""
     import numpy as np
 
-    scale = CCTA_SCALE
+    scale = CCTA_SCALE if scale is None else scale
     from multimodars_torch.ccta.mesh import Mesh, concatenate
 
     mesh = concatenate([
@@ -1630,7 +1842,7 @@ def ccta_run(torch, mt, case):
         scaled_idx = {k: regions.get_idx(scaled, k) for k in regions.REGION_KEYS if k in scaled}
         stitched = quiet(mt.stitch, scaled, geom, region_remove=("anomalous_points",),
                          prox_start_mode="nearest_iv", dist_start_mode="nearest_iv",
-                         n_points_iv_cont=64 * CCTA_SCALE)
+                         n_points_iv_cont=len(geom.frames[0].lumen.points))
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return labelled, scaled_idx, list(scalings), stitched["mesh"]
@@ -2179,6 +2391,255 @@ def phase_ccta(torch, mt, profile=False):
     return launches, kres, dict(case=case, f32=run32, cpu=run_cpu, calls=calls)
 
 
+# the CCTA fusion benchmark's build_case(scale=5): 160,006 vertices, 320,000
+# faces, 12 IV frames x 320 points
+CCTA_LARGE_SCALE = 5
+CCTA_LARGE_VERTICES, CCTA_LARGE_FACES = 160006, 320000
+
+
+def phase_ccta_large(torch, mt):
+    """Phase 8 on the benchmark's scale-5 case: ``label`` -> ``scale`` ->
+    ``stitch`` in f32 on the card (launches and certification counted), f64
+    on the card and f64 on the CPU (the same regions, scalings and stitched
+    mesh, 0.0 mm); each kernel against plain on the f32 run's recorded
+    calls; the ray pass's two routes timed whole on the run's rays, and
+    which of them ``_RAY_NATIVE_THRESHOLD`` picks; wall clock (median of 3
+    after 1 warm-up).  Returns (launches, kernel report, ray kernel row)."""
+    import numpy as np
+
+    from multimodars_torch.ccta import kernels as ck
+    from multimodars_torch.ops import morph_sweep, nearest, radius_count, ray_triangle
+    from multimodars_torch.utils import trace
+
+    t0 = time.perf_counter()
+    case = ccta_case(mt, CCTA_LARGE_SCALE)
+    mesh = case[0]
+    say("ccta-160k", f"case built in {time.perf_counter() - t0:.2f} s: "
+                     f"{len(mesh.vertices)} vertices, {len(mesh.faces)} faces, "
+                     f"{len(case[4].frames)} IV frames x {len(case[4].frames[0].lumen.points)} "
+                     f"points")
+    check((len(mesh.vertices), len(mesh.faces)) == (CCTA_LARGE_VERTICES, CCTA_LARGE_FACES),
+          "the case is not the 160,006-vertex benchmark mesh")
+    mods = {"radius_count": radius_count, "nearest": nearest, "morph_sweep": morph_sweep,
+            "ray_triangle": ray_triangle}
+
+    # the counted run: every launch count set to 0 just before it
+    for mod in mods.values():
+        mod.launches = 0
+    ck.reset_stats()
+    trace.reset()
+    with recorded_ccta_calls() as calls, recorded_rays() as rays:
+        t0 = time.perf_counter()
+        run32 = ccta_run(torch, mt, case)
+        first_s = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in mods.items()}
+    stats32 = {k: dict(v) for k, v in ck.stats.items()}
+    say("ccta-160k", f"f32 first run {first_s:.3f} s; launches {launches}; "
+                     f"certification {stats32}")
+    for name, n in launches.items():
+        check(n > 0, f"the 160k CCTA path launched no {name} kernel")
+    sizes = {k: len(v) for k, v in run32[1].items()}
+    say("ccta-160k", f"regions after scale: {sizes}; scalings (proximal, distal, aortic) "
+                     f"{run32[2]}; stitched {len(run32[3].vertices)} vertices, "
+                     f"{len(run32[3].faces)} faces")
+    check(np.isfinite(run32[3].vertices).all() and len(run32[3].faces) > 0,
+          "the stitched mesh is empty or not finite")
+
+    ck.reset_stats()
+    with mt.config.use(dtype=torch.float64):
+        run64 = ccta_run(torch, mt, case)
+    stats64 = {k: dict(v) for k, v in ck.stats.items()}
+    t0 = time.perf_counter()
+    with mt.config.use(device="cpu", dtype=torch.float64):
+        run_cpu = ccta_run(torch, mt, case)
+    cpu_s = time.perf_counter() - t0
+    for other, label in ((run64, "f64 card"), (run_cpu, "f64 CPU")):
+        same_regions = all(
+            a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+            for a, b in ((run32[0], other[0]), (run32[1], other[1])))
+        d = (float(np.abs(run32[3].vertices - other[3].vertices).max())
+             if run32[3].vertices.shape == other[3].vertices.shape else float("inf"))
+        same_faces = np.array_equal(run32[3].faces, other[3].faces)
+        say("ccta-160k", f"f32 card vs {label}: same region index sets {same_regions}, "
+                         f"scalings {run32[2]} vs {other[2]}, same stitched faces {same_faces}, "
+                         f"max |stitched vertex diff| {d:.3e} mm")
+        check(same_regions, f"160k: f32 card and {label} label different regions")
+        check(run32[2] == other[2], f"160k: f32 card and {label} find different scalings")
+        check(same_faces and d == 0.0, f"160k: f32 card and {label} stitch different meshes")
+    say("ccta-160k", f"f64 card certification {stats64}; f64 CPU run {cpu_s:.3f} s")
+
+    kres = report_ccta_calls(torch, calls, launches)
+    check(len(rays) == 1, f"{len(rays)} occlusion ray tests in one run")
+    origins, directions, tris = rays[0]
+    row = check_ray_call(torch, origins, directions, tris, "160k occlusion rays")
+    pairs = len(origins) * len(tris)
+    picked = "kernel" if pairs > ck._RAY_NATIVE_THRESHOLD["cuda"] else "native DDA"
+    faster = min(row["routes"], key=row["routes"].get)
+    say("ccta-160k", f"occlusion rays {len(origins)} x {len(tris)} = {pairs:.4e} pairs: "
+                     f"_RAY_NATIVE_THRESHOLD ({ck._RAY_NATIVE_THRESHOLD['cuda']:.2e} pairs) "
+                     f"picks the {picked} route; whole-call host ms, kernel route "
+                     f"{row['routes']['kernel']:.4f}, native DDA "
+                     f"{row['routes']['native DDA']:.4f}; the faster is the {faster} route, "
+                     f"picked {picked == faster}")
+
+    def run():
+        return ccta_run(torch, mt, case)
+
+    run()
+    trace.reset()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    say("ccta-160k", f"label -> scale -> stitch wall clock f32, median of 3 after 1 warm-up: "
+                     f"{sorted(times)[1]:.4f} s (runs {', '.join(f'{t:.4f}' for t in times)})")
+    say("ccta-160k", "spans per run, mean of those runs (s, calls): " + ", ".join(
+        f"{k} {v[0] / 3:.4f} (x{v[1] // 3})"
+        for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
+    return launches, kres, row
+
+
+# side branches of each coronary of phase 8's side-branch tree: the aorta,
+# the two mains and six side branches make 9 walks, past the 8 pairs one
+# nearest launch takes
+SIDE_TREE_SIDES = 3
+
+
+def side_tree_centerline(sides=SIDE_TREE_SIDES):
+    """A raw centerline with ``sides`` side branches (the Y-shaped coronary
+    of tests/test_torch_discretization.py, with more sides): a 40 mm main
+    polyline at 0.5 mm spacing, then each side a 12 mm polyline starting
+    0.6 mm off the main at z 10 ... 30 mm, turned about the main by whole
+    parts of a circle; the spacing jumps split them.  Returns the
+    polylines, the main first."""
+    import numpy as np
+
+    main = np.array([[0.0, 0.0, z] for z in np.linspace(40.0, 0.0, 81)])
+    parts = [main]
+    for k in range(sides):
+        a = 2.0 * math.pi * k / sides
+        d = np.array([math.cos(a), math.sin(a), 0.5]) / math.sqrt(1.25)
+        z0 = 10.0 + 20.0 * k / max(sides - 1, 1)
+        start = np.array([[0.6 * math.cos(a), 0.6 * math.sin(a), z0]])
+        parts.append(start + 0.5 * np.arange(25)[:, None] * d)
+    return parts
+
+
+def side_tree_case(mt):
+    """A right and a left coronary of :func:`side_tree_centerline` beside an
+    aorta tube, labelled by construction: (aorta centerline, RCA and LCA
+    centerlines, results with the mesh and the three regions), fresh on
+    each call (prepare_centerlines adds to the results)."""
+    import numpy as np
+
+    from multimodars_torch.ccta.mesh import Mesh, concatenate
+
+    raws, tubes = [], []
+    for shift in (np.array([14.0, 0.0, 0.0]), np.array([-14.0, 0.0, 0.0])):
+        parts = [p + shift for p in side_tree_centerline()]
+        raws.append(np.vstack(parts))
+        tubes.append([_tube_mesh(Mesh, parts[0], 1.2, 16)]
+                     + [_tube_mesh(Mesh, p[2:], 0.8, 12) for p in parts[1:]])
+    cl_ao = _line((0, 0, 45), (0, 0, -5), 51)
+    parts = [_tube_mesh(Mesh, cl_ao, 6.0, 32), *tubes[0], *tubes[1]]
+    mesh = concatenate(parts)
+    counts = np.cumsum([0] + [len(p.vertices) for p in parts])
+    verts = [tuple(v) for v in mesh.vertices.tolist()]
+    n = 1 + SIDE_TREE_SIDES
+    results = {"mesh": mesh, "aorta_points": verts[counts[0]:counts[1]],
+               "rca_points": verts[counts[1]:counts[1 + n]],
+               "lca_points": verts[counts[1 + n]:counts[1 + 2 * n]]}
+    return (mt.numpy_to_centerline(cl_ao), mt.numpy_to_centerline(raws[0]),
+            mt.numpy_to_centerline(raws[1]), results)
+
+
+def phase_side_tree(torch, mt):
+    """Phase 8's vessel tree with side branches: ``prepare_centerlines`` ->
+    ``discretize_vessel_tree`` (without and with the refit) on
+    :func:`side_tree_case`, 9 walks a tree: nearest launches a tree equal to
+    ceil(walks / 8), f32 card = f64 card = f64 CPU exactly, and the batched
+    pick equal to each walk picked on its own on the card.  Returns the
+    launches of the counted runs."""
+    import numpy as np
+
+    from multimodars_torch.ccta import discretization_map
+    from multimodars_torch.ccta import kernels as ck
+    from multimodars_torch.ops import morph_sweep, nearest, radius_count
+
+    mods = {"radius_count": radius_count, "nearest": nearest, "morph_sweep": morph_sweep}
+
+    def trees():
+        ao_cl, rca_raw, lca_raw, results = side_tree_case(mt)
+        rca_cl, lca_cl, results = quiet(mt.prepare_centerlines, rca_raw, lca_raw, results)
+        return results, tree_discretize(torch, mt, (ao_cl, rca_cl, lca_cl, results))
+
+    # the counted run: every launch count set to 0 just before it
+    for mod in mods.values():
+        mod.launches = 0
+    picks = []
+    walk_pick = ck._walk_pick
+
+    def spy(walks):
+        out = walk_pick(walks)
+        picks.append((list(walks), out))
+        return out
+
+    ck._walk_pick = spy
+    try:
+        t0 = time.perf_counter()
+        results, got = trees()
+        secs = time.perf_counter() - t0
+    finally:
+        ck._walk_pick = walk_pick
+    launches = {name: mod.launches for name, mod in mods.items()}
+    sides = [discretization_map._numbered_regions(results, f"{v}_points") for v in ("rca", "lca")]
+    walks = 3 + len(sides[0]) + len(sides[1])
+    per_tree = -(-walks // nearest.MAX_PAIRS)
+    say("ccta-side-tree", f"{2 * SIDE_TREE_SIDES} side branches, {walks} walks a tree: f32 "
+                          f"prepare + discretize x{len(TREE_BSPLINE)} {secs:.3f} s, launches "
+                          f"{launches}; {per_tree} nearest launch(es) a tree expected (up to "
+                          f"{nearest.MAX_PAIRS} walks a launch)")
+    check(walks >= nearest.MAX_PAIRS + 1, f"{walks} walks: the tree fits one pick launch")
+    check(launches["nearest"] == per_tree * len(TREE_BSPLINE),
+          f"{launches['nearest']} nearest launches for {len(TREE_BSPLINE)} trees of {walks} "
+          f"walks, expected {per_tree} a tree")
+    for b_spline, tree in zip(TREE_BSPLINE, got):
+        say("ccta-side-tree", f"b_spline {b_spline}: contours " + ", ".join(
+            f"{name} {len(s)}" for name, s in tree_stacks(tree)))
+        check(len(tree.rca_branches) == len(tree.lca_branches) == SIDE_TREE_SIDES
+              and all(tree.rca_branches) and all(tree.lca_branches),
+              f"b_spline {b_spline}: side-branch stacks {len(tree.rca_branches)}, "
+              f"{len(tree.lca_branches)}, or an empty one")
+
+    # the batched pick against each walk picked on its own on the card
+    check(len(picks) == len(TREE_BSPLINE) and all(len(w) == walks for w, _ in picks),
+          f"walk picks {[len(w) for w, _ in picks]}")
+    differ = 0
+    for walk_list, batched in picks:
+        for walk, (anchors, _pts, assignment) in zip(walk_list, batched):
+            (one,) = ck._walk_pick([walk])
+            same = (np.array_equal(anchors[0], one[0][0]) and np.array_equal(anchors[1], one[0][1])
+                    and (assignment is None) == (one[2] is None)
+                    and (assignment is None or np.array_equal(assignment, one[2])))
+            differ += not same
+    nearest.launches = launches["nearest"]  # the single picks do not count
+    say("ccta-side-tree", f"batched walk picks vs each walk picked alone on the card: "
+                          f"{differ} of {len(picks) * walks} differ")
+    check(differ == 0, f"{differ} batched walk picks differ from single picks")
+
+    for device, label in ((None, "f64 card"), ("cpu", "f64 CPU")):
+        with mt.config.use(device=device, dtype=torch.float64):
+            _, other = trees()
+        diffs = [f"b_spline {b}: {d}" for b, g, w in zip(TREE_BSPLINE, got, other)
+                 for d in tree_differences(g, w)]
+        say("ccta-side-tree", f"f32 card vs {label}: " + ("same contour counts, contours "
+                                                         "(0.0 mm) and reference points"
+                                                         if not diffs else "; ".join(diffs)))
+        check(not diffs, f"side-branch tree: f32 card and {label} discretize different trees")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 9
 # ---------------------------------------------------------------------------
@@ -2304,7 +2765,8 @@ def check_ray_call(torch, origins, directions, tris, label, native_check=True):
                  f"ray_occlusion by the host clock, median of 5: kernel route "
                  f"{routes['kernel']:.4f} ms, native DDA {routes['native DDA']:.4f} ms")
     say("ccta-tables", line + f" (card after: {card_state()})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                routes=routes)
 
 
 def synthetic_ray_case(np):
@@ -2890,6 +3352,59 @@ def band_check(torch, rs, t64, t32, s2, valid, exact):
                      int((flag_native & ~flag64 & rows).sum())])
 
 
+# rows of an exact f64 table whose argmin phase 11 also takes from the plain
+# version on the CPU: every row while the table has at most this many point
+# pairs; past it the rows whose runner-up lies within BAND64_NEAR times the
+# derived f64 band of the minimum (two f64 tables each within the derived
+# bound of the exact costs can order no other row differently) and every
+# BAND64_EVERY-th row
+BAND64_CPU_PAIRS = 3e8
+BAND64_NEAR = 16.0
+BAND64_EVERY = 64
+
+
+def band64_cpu(torch, sweep, rs, args, kw, t64, s2, live):
+    """The card kernel's f64 argmin against the plain version's f64 argmin
+    on the CPU, on the rows of one exact table (see BAND64_CPU_PAIRS):
+    [rows compared, rows, rows whose index differs, of those flagged by the
+    f64 band in force (the JAX package's), by the derived f64 band]."""
+    import numpy as np
+
+    s64 = s2.double()
+    m = t64.amin(dim=1)
+    # the f32 band's derivation at eps64, two-sided (the comment above
+    # ops.rotation_search._TIE_C)
+    eps = float(torch.finfo(torch.float64).eps)
+    derived = (eps * (20.84 * torch.sqrt(torch.clamp(s64 * m, min=0.0)) + 4.02 * m)
+               + 485.1 * eps * eps * s64)
+
+    def near(width):
+        return ((t64 <= (m + width)[:, None]).sum(dim=1) > 1) & live
+
+    flag_band = rs._tie_flags(t64, m, s64, live)
+    flag_derived = near(derived)
+    F, K = t64.shape
+    rows = torch.ones(F, dtype=torch.bool, device=t64.device)
+    if F * K * args[0].shape[1] * args[1].shape[1] > BAND64_CPU_PAIRS:
+        every = torch.arange(F, device=t64.device) % BAND64_EVERY == 0
+        rows = near(BAND64_NEAR * derived) | every
+    rows &= torch.isfinite(m)
+    idx = torch.nonzero(rows)[:, 0]
+    cpu = [None if a is None else a[idx].cpu() for a in args]
+    cpu[0], cpu[1], cpu[4] = cpu[0].double(), cpu[1].double(), cpu[4].double()
+    plain = sweep.cost_table_plain(*cpu, **kw)
+    differ = (t64[idx].cpu().argmin(dim=1) != plain.argmin(dim=1)).numpy()
+    return np.array([len(idx), F, int(differ.sum()),
+                     int((differ & flag_band[idx].cpu().numpy()).sum()),
+                     int((differ & flag_derived[idx].cpu().numpy()).sum())])
+
+
+def band64_cpu_line(res):
+    return (f"card f64 argmin vs CPU f64 argmin: rows compared {int(res[0])} of "
+            f"{int(res[1])}, index differs in {int(res[2])}, of those flagged by the f64 "
+            f"band (the JAX package's) {int(res[3])}, by the derived f64 band {int(res[4])}")
+
+
 def band64_line(res):
     return (f"f64 rows flagged by the f64 band (1e-14 floor) {int(res[8])}, by the "
             f"derivation at eps64 {int(res[9])}, by the first only {int(res[10])}, by the "
@@ -2902,16 +3417,22 @@ def band_paths(mt):
     phases 3, 5 and 7, and the vendored fixtures."""
     import numpy as np
 
-    from bench import synthetic_oct_pullback
 
     fixtures = REPO / "tests" / "data" / "fixtures"
     oct_single = mt.numpy_to_inputdata(*synthetic_oct_pullback(OCT_FRAMES, OCT_POINTS), True,
                                        label="oct280")
     full = full_inputs(mt)
     cohort = cohort_datas(mt)
+    real_single = real_single_data(mt)[2]
+    real_full = real_fixture_datas(mt, OCT_FRAMES)
     return [
         ("OCT-280 single", lambda: quiet(mt.from_array_single, oct_single, **MAIN_ARGS),
          lambda out: lumen_coords(out[0])),
+        (f"{REAL_CASE} single",
+         lambda: quiet(mt.from_array_single, real_single, **MAIN_ARGS),
+         lambda out: lumen_coords(out[0])),
+        ("4 x real-fixture-280 full", lambda: quiet(mt.from_array_full, *real_full, **FULL_ARGS),
+         lambda out: pair_coords(out[:4])),
         ("4 x OCT-280 full", lambda: quiet(mt.from_array_full, *full, **FULL_ARGS),
          lambda out: pair_coords(out[:4])),
         ("16 x OCT-280 cohort",
@@ -2973,25 +3494,32 @@ def phase_band(torch, sweep, rs, mt):
     paths = band_paths(mt)
     dev = torch.device("cuda", 0)
     total = np.zeros(12)
+    total64 = np.zeros(5)
     ref64 = {}
     for name, run, coords in paths:
         with mt.config.use(dtype=torch.float64), recorded_tables(sweep) as seen:
             ref64[name] = coords(run())
         res = np.zeros(12)
+        res64 = np.zeros(5)
         for args, kw in seen:
             kw = dict(dict(dense=False, outer_stride_test=1, outer_stride_ref=1), **kw)
             t64, t32, s2 = band_tables(torch, sweep, rs, args, kw)
             exact = kw["outer_stride_test"] == kw["outer_stride_ref"] == 1
             r = band_check(torch, rs, t64, t32, s2, args[5], exact)
             res = np.concatenate([[max(res[0], r[0])], res[1:] + r[1:]])
+            if exact:
+                res64 += band64_cpu(torch, sweep, rs, args, kw, t64, s2, args[5].any(dim=1))
         say("band", f"{name}: {len(seen)} tables of the f64 run, {int(res[1])} entries: "
                     f"max |f32 - f64| {res[0]:.4f} units of the derived bound; exact-table rows "
                     f"{int(res[2])}, flagged new / old band {int(res[3])} / {int(res[4])}; "
                     f"f32 argmin != f64 argmin {int(res[5])}, unflagged new {int(res[6])}, "
                     f"old {int(res[7])}; {band64_line(res)}")
+        say("band", f"{name}: {band64_cpu_line(res64)}")
         total = np.concatenate([[max(total[0], res[0])], total[1:] + res[1:]])
+        total64 += res64
     for name, test, ref in band_family(np):
         res = np.zeros(12)
+        res64 = np.zeros(5)
         plain_units = 0.0
         for g in BAND_GRIDS:
             F = test.shape[0]
@@ -3006,19 +3534,26 @@ def phase_band(torch, sweep, rs, mt):
             p32 = sweep.cost_table_plain(args[0].float(), args[1].float(), None, None,
                                          angles.float(), valid, dense=True)
             plain_units = max(plain_units, band_check(torch, rs, t64, p32, s2, valid, True)[0])
+            res64 += band64_cpu(torch, sweep, rs, args, kw, t64, s2, valid.any(dim=1))
         say("band", f"family {name}: {int(res[1])} entries, max |f32 - f64| {res[0]:.4f} units "
                     f"(plain version on the card {plain_units:.4f}); rows {int(res[2])}, "
                     f"flagged new / old {int(res[3])} / {int(res[4])}; argmin swaps "
                     f"{int(res[5])}, unflagged new {int(res[6])}, old {int(res[7])}; "
-                    f"{band64_line(res)}")
+                    f"{band64_line(res)}; {band64_cpu_line(res64)}")
+        total64 += res64
         check(plain_units <= 1.0, f"family {name}: the plain f32 table exceeds the bound")
         total = np.concatenate([[max(total[0], res[0])], total[1:] + res[1:]])
     say("band", f"all tables: max |f32 - f64| {total[0]:.4f} units of the derived bound over "
                 f"{int(total[1])} entries; f32 argmin != f64 argmin in {int(total[5])} rows, "
                 f"unflagged under the derived band {int(total[6])}, under the old band "
                 f"{int(total[7])}; {band64_line(total)}")
+    say("band", f"all exact tables: {band64_cpu_line(total64)}; unflagged by the f64 band "
+                f"{int(total64[2] - total64[3])}")
     check(total[0] <= 1.0, f"an f32 entry is off by {total[0]:.4f} units of the derived bound")
     check(total[6] == 0, f"{int(total[6])} f32 argmin swaps left unflagged by the band")
+    check(total64[2] == total64[3],
+          f"{int(total64[2] - total64[3])} rows whose card f64 argmin differs from the CPU's "
+          f"are left unflagged by the f64 band")
 
     for name, run, coords in paths:
         got = {}
@@ -3046,6 +3581,156 @@ def phase_band(torch, sweep, rs, mt):
                     f"{new['repair_s'] - old['repair_s']:+.4f} s")
         check(got["derived"][1] <= 1e-4,
               f"{name}: f32 under the derived band differs from f64 by {got['derived'][1]} mm")
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+# every this-many-th within pair of phase 12's single path also goes through
+# the exact host f64 ladder (every flagged pair does)
+REAL_LADDER_EVERY = 14
+
+
+def real_single_data(mt):
+    """Phase 12's single pullback: lumen rows, reference point, input data."""
+    lumen, ref = real_fixture_pullback(FIXTURES / "ivus_rest" / "diastolic_contours.csv",
+                                       OCT_FRAMES)
+    return lumen, ref, mt.numpy_to_inputdata(lumen, ref, True, label="real280")
+
+
+def phase_real(torch, sweep, rs, mt, profile=False):
+    """Phase 12, the real-fixture pullback: ``from_array_single`` at the
+    smoke's arguments in f32 and f64 on the card and f64 on the CPU (the
+    same grid index in every within pair, f32 swaps flagged and settled,
+    coordinates within 1e-4 mm, repair and pruning counters, the exact
+    host ladder on every flagged and every 14th pair, the kernel against
+    plain at the case's tables, wall clock and spans), then
+    ``from_array_full`` on the four real-fixture pullbacks (phase 5's
+    checks).  Returns the sweep launches of the counted card runs."""
+    import numpy as np
+
+    from multimodars_torch.ops import argmin_repair
+    from multimodars_torch.ops.argmin_repair import exact_ladder
+    from multimodars_torch.pipelines import align_within
+    from multimodars_torch.utils import trace
+
+    lumen, ref, data = real_single_data(mt)
+    pts, mask = sample_sets(lumen, ref, "real280")
+    frames = np.unique(lumen[:, 0])
+    say("real", f"{REAL_CASE}: {len(frames)} frames x {int((lumen[:, 0] == 0).sum())} "
+                f"points, sample sets {list(pts.shape)} "
+                f"({'masked' if mask is not None else 'dense'})")
+
+    def run(dtype=None, device=None):
+        with mt.config.use(device=device, dtype=dtype):
+            out = quiet(mt.from_array_single, data, **MAIN_ARGS)
+        if device is None:
+            torch.cuda.synchronize()
+        return out
+
+    runs = {}
+    for label, dtype, device in (("f32 card", torch.float32, None),
+                                 ("f64 card", torch.float64, None),
+                                 ("f64 CPU", torch.float64, "cpu")):
+        # the counted run: every launch count set to 0 just before it
+        reset_counters(sweep, argmin_repair, trace)
+        for k in rs.prune_stats:
+            rs.prune_stats[k] = 0
+        with recorded_repairs(align_within) as seen, recorded_tables(sweep) as tables:
+            t0 = time.perf_counter()
+            geom, logs = run(dtype, device)
+            secs = time.perf_counter() - t0
+        check(len(seen) == 1, f"{label}: {len(seen)} within chains repaired")
+        stats = dict({k: argmin_repair.stats.get(k, 0)
+                      for k in ("flagged", "repaired", "changed", "host_exact")},
+                     f64_tables=sum(a[0].dtype == torch.float64 for a, _ in tables)
+                     if dtype == torch.float32 else 0,
+                     pruned=rs.prune_stats["stages"], fallbacks=rs.prune_stats["fallbacks"])
+        runs[label] = dict(geom=geom, logs=logs, chain=seen[0], tables=tables, stats=stats,
+                           launches=sweep.launches, seconds=secs)
+        say("real", f"single {label}: {secs:.3f} s (first run), sweep kernel launches "
+                    f"{sweep.launches}; repair {stats} (f64_tables: the f64 re-search "
+                    f"tables; fallbacks: pruned stages that swept every candidate)")
+    check(runs["f32 card"]["launches"] > 0 and runs["f64 card"]["launches"] > 0,
+          "the real-fixture path launched no sweep kernel on the card")
+    check(runs["f64 CPU"]["launches"] == 0, "the CPU run launched a kernel")
+    c32 = lumen_coords(runs["f32 card"]["geom"])
+    check(c32.shape == (OCT_FRAMES * int((lumen[:, 0] == 0).sum()), 3)
+          and np.isfinite(c32).all(), "output coordinates not finite or of the wrong shape")
+    want = runs["f64 CPU"]["chain"][2]
+    for label in ("f32 card", "f64 card"):
+        raw, flags, settled = runs[label]["chain"]
+        same = bool(np.array_equal(grid_steps(settled, STEP_DEG), grid_steps(want, STEP_DEG)))
+        unflagged, settled_swaps = unsettled_swaps(raw, flags, want, STEP_DEG)
+        d_xyz = float(np.abs(lumen_coords(runs[label]["geom"])
+                             - lumen_coords(runs["f64 CPU"]["geom"])).max())
+        say("real", f"single {label} vs f64 CPU: same grid index in every within pair {same}; "
+                    f"searched angles on another index {unflagged + settled_swaps} "
+                    f"(flagged and settled {settled_swaps}, unflagged {unflagged}); max "
+                    f"|coord diff| {d_xyz:.3e} mm")
+        check(same, f"{label} and f64 CPU land on different grid indices")
+        check(unflagged == 0, f"{label}: {unflagged} unflagged searched angles off the grid index")
+        check(d_xyz <= 1e-4, f"{label} vs f64 CPU coordinates differ by {d_xyz} mm")
+
+    # the exact host f64 ladder on every flagged and every 14th pair
+    raw32, flags32, settled32 = runs["f32 card"]["chain"]
+    idx = sorted(set(np.nonzero(flags32)[0].tolist())
+                 | set(range(0, len(settled32), REAL_LADDER_EVERY)))
+    t0 = time.perf_counter()
+    worst = 0.0
+    for i in idx:
+        t = pts[i + 1] if mask is None else pts[i + 1][mask[i + 1]]
+        r = pts[i] if mask is None else pts[i][mask[i]]
+        exact = exact_ladder(t, r, STEP_DEG, RANGE_DEG, False)
+        worst = max(worst, abs(math.degrees(exact - settled32[i])))
+        check(abs(math.degrees(exact - settled32[i])) < 1e-4,
+              f"pair {i}: port {math.degrees(settled32[i])} deg, exact host ladder "
+              f"{math.degrees(exact)} deg")
+    say("real", f"exact host f64 ladder agrees on {len(idx)} pairs ({int(flags32.sum())} "
+                f"flagged, every {REAL_LADDER_EVERY}th): max |diff| {worst:.3e} deg "
+                f"({time.perf_counter() - t0:.1f} s)")
+
+    # the kernel against plain at this case's tables (f32 run, f64 run)
+    err = 0.0
+    seen_keys = set()
+    for label in ("f32 card", "f64 card"):
+        for args, kw in runs[label]["tables"]:
+            kw = dict(dict(dense=False, outer_stride_test=1, outer_stride_ref=1), **kw)
+            key = table_name(torch, args, kw)
+            if key in seen_keys:
+                continue
+            seen_keys.add(key)
+            saved = sweep.launches
+            e, _, _ = check_table(torch, sweep, rs, f"real {key}", args, kw, 3, phase="real")
+            sweep.launches = saved  # launches made to compare with plain do not count
+            err = max(err, e)
+    report_tables(torch, sweep, "real single", runs["f32 card"]["tables"])
+
+    for _ in range(2):
+        run()
+    trace.reset()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[2]
+    say("real", f"single wall clock f32, median of 5 after 2 warm-ups: {med:.4f} s "
+                f"(runs {', '.join(f'{t:.4f}' for t in times)}); f64 CPU run "
+                f"{runs['f64 CPU']['seconds']:.3f} s")
+    say("real", "mean spans of those runs (s): " + ", ".join(
+        f"{k} {v[0] / v[1]:.4f}"
+        for k, v in sorted(trace.summary().items(), key=lambda kv: -kv[1][0])))
+    if profile:
+        profile_main_path(torch, run, "real_profile.json")
+
+    # its wall clock takes fewer runs than phase 5's: the smoke's time more
+    # than doubled with phases 8 and 12, mostly their single f64 CPU runs
+    full_launches, _, _ = phase_full_path(
+        torch, sweep, mt, profile, datas=real_fixture_datas(mt, OCT_FRAMES), tag="real",
+        warm=1, reps=3)
+    return runs["f32 card"]["launches"] + full_launches, err
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -3075,8 +3760,10 @@ def main() -> int:
 
     # a failed check raises SmokeFailure out of main(): the traceback names
     # the phase and the process exits non-zero
-    phase_environment(torch, sweep, hb, (radius_count, nearest, morph_sweep, ray_triangle))
-    kres = phase_kernel(torch, sweep, rs)
+    with peak_memory(torch, "1 (environment, kernel builds)"):
+        phase_environment(torch, sweep, hb, (radius_count, nearest, morph_sweep, ray_triangle))
+    with peak_memory(torch, "2 (kernel against plain)"):
+        kres = phase_kernel(torch, sweep, rs)
     launches = hb_launches = ray_launches = None
     if args.only == "kernel":
         res = [check_refine_table(torch, hb, dtype, *synthetic_refine_tables())
@@ -3087,28 +3774,54 @@ def main() -> int:
         cres = report_ccta_calls(torch, synthetic_ccta_calls(torch), ccta_launches)
         rres = synthetic_ray_call(torch)
     else:
-        launches, _ = phase_main_path(torch, sweep, mt, args.profile)
-        phase_cross_device(torch, mt)
-        full_launches, clouds, pair_ab = phase_full_path(torch, sweep, mt, args.profile)
-        launches += full_launches
-        kres["max_abs_err"] = max(
-            kres["max_abs_err"], phase_full_kernel(torch, sweep, rs, mt, clouds[:2])
-        )
-        phase_full_cross_device(torch, mt)
-        hb_launches, chain_launches, hres, refine_inputs = phase_centerline(
-            torch, hb, mt, pair_ab, args.profile)
-        launches += chain_launches
-        cohort_launches, err = phase_cohort(torch, sweep, rs, mt, args.profile)
-        launches += cohort_launches
-        kres["max_abs_err"] = max(kres["max_abs_err"], err)
-        ccta_launches, cres, ccta_state = phase_ccta(torch, mt, args.profile)
-        mesh_ray_launches, rres = phase_mesh(torch, mt, ccta_state)
-        # phase 8's counted run and phase 9's three counted runs
+        with peak_memory(torch, "3 (OCT-280 single)"):
+            launches, _ = phase_main_path(torch, sweep, mt, args.profile)
+        with peak_memory(torch, "4 (fixture across devices)"):
+            phase_cross_device(torch, mt)
+        with peak_memory(torch, "5 (4 x OCT-280 full)"):
+            full_launches, clouds, pair_ab = phase_full_path(torch, sweep, mt, args.profile)
+            launches += full_launches
+            kres["max_abs_err"] = max(
+                kres["max_abs_err"], phase_full_kernel(torch, sweep, rs, mt, clouds[:2])
+            )
+            phase_full_cross_device(torch, mt)
+        with peak_memory(torch, "6 (centerline)"):
+            hb_launches, chain_launches, hres, refine_inputs = phase_centerline(
+                torch, hb, mt, pair_ab, args.profile)
+            launches += chain_launches
+        with peak_memory(torch, "7 (cohort)"):
+            cohort_launches, err = phase_cohort(torch, sweep, rs, mt, args.profile)
+            launches += cohort_launches
+            kres["max_abs_err"] = max(kres["max_abs_err"], err)
+        with peak_memory(torch, "8 (CCTA, 57,606 vertices, and its tree)"):
+            ccta_launches, cres, ccta_state = phase_ccta(torch, mt, args.profile)
+        with peak_memory(torch, "8 (CCTA, 160,006 vertices)"):
+            large_launches, large_kres, large_rres = phase_ccta_large(torch, mt)
+        with peak_memory(torch, "8 (side-branch tree)"):
+            side_launches = phase_side_tree(torch, mt)
+        for name in ccta_launches:
+            ccta_launches[name] += large_launches[name] + side_launches.get(name, 0)
+        for kernel, row in large_kres.items():
+            err = max(cres[kernel]["max_abs_err"], row["max_abs_err"])
+            if row["bound_ms"] > cres[kernel]["bound_ms"]:
+                cres[kernel] = row
+            cres[kernel]["max_abs_err"] = err
+        with peak_memory(torch, "9 (meshes)"):
+            mesh_ray_launches, rres = phase_mesh(torch, mt, ccta_state)
+        rres["max_abs_err"] = max(rres["max_abs_err"], large_rres["max_abs_err"])
+        # phase 8's counted runs and phase 9's three counted runs
         ray_launches = ccta_launches["ray_triangle"] + mesh_ray_launches
-        ops_sweep_launches, ops_hb_launches = phase_ops(torch, refine_inputs)
+        with peak_memory(torch, "10 (ops surface)"):
+            ops_sweep_launches, ops_hb_launches = phase_ops(torch, refine_inputs)
         launches += ops_sweep_launches
         hb_launches += ops_hb_launches
-        phase_band(torch, sweep, rs, mt)
+        # phase 12 runs before phase 11, whose band check takes its case
+        with peak_memory(torch, "12 (real-fixture pullback)"):
+            real_launches, err = phase_real(torch, sweep, rs, mt, args.profile)
+        launches += real_launches
+        kres["max_abs_err"] = max(kres["max_abs_err"], err)
+        with peak_memory(torch, "11 (certification bands)"):
+            phase_band(torch, sweep, rs, mt)
     rres["max_abs_err"] = max(rres["max_abs_err"], adversarial_ray_call(torch)["max_abs_err"])
     for name in sorted(sys.modules):
         if name == "jax" or name.startswith(("jax.", "multimodars_tpu")):

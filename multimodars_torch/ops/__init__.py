@@ -1,9 +1,9 @@
 """Device compute of the port.
 
 The five public names are those of the JAX package's ``ops`` subpackage,
-without its TPU switches (``use_pallas``, ``angle_chunk``).  Each takes the
-hand-written kernel on CUDA tensors and its plain PyTorch version on CPU
-tensors:
+with its parameters.  Its TPU switches (``use_pallas``, ``angle_chunk``)
+are accepted and change nothing: each name takes the hand-written kernel
+on CUDA tensors and its plain PyTorch version on CPU tensors:
 
 - :func:`hausdorff_sq_masked`, :func:`hausdorff_distance_masked` — the
   refine kernel (``csrc/hausdorff_batch.cu``), one candidate set per

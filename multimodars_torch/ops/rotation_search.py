@@ -23,7 +23,9 @@ branch on one synchronised boolean.
 from __future__ import annotations
 
 import math
+import operator
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,13 +42,18 @@ def _normalize_angle(a):
 
 
 def rotation_cost_table(test, ref, test_mask, ref_mask, angles, angles_valid,
-                        dense: bool = False):
+                        dense: bool = False, angle_chunk: Optional[int] = None):
     """Squared-Hausdorff cost of rotating each frame's centered test set by
     each candidate angle against its centered reference set.
 
     test: [F, N, 2], ref: [F, M, 2] (centered on the rotation pivot);
     angles/angles_valid: [F, K].  Returns costs [F, K] with +inf at invalid
-    slots."""
+    slots.  ``angle_chunk`` is the JAX package's count of angles a
+    ``[G, F, N, M]`` distance tile takes (clamped to [1, K] there); the
+    kernel forms no such tile, so every chunk gives the same table.  It
+    must be an integer."""
+    if angle_chunk is not None:
+        operator.index(angle_chunk)
     test, ref, test_mask, ref_mask, angles, angles_valid = _contiguous(
         test, ref, test_mask, ref_mask, angles, angles_valid)
     return sweep.cost_table(
@@ -142,7 +149,9 @@ def candidate_angles(centers, step_deg: float, range_deg: float, limes_deg: floa
 # m <= 4 r^2 so u·m <= eps·r·sqrt(m)); the rest is margin.  The floor
 # matters only for costs near 0: sets congruent under a grid angle, where
 # the f32 winner can cost exactly 0 and the f64 one sit at a lower index
-# (tests/test_torch_band.py pins such a case).
+# (tests/test_torch_band.py pins such a case).  The pruned stage's
+# zero-cost certificate takes the same floor in f32 (see
+# :func:`search_range_batched_pruned`).
 #
 # float64: the JAX package's band (8 units of max(eps, 1e-14), no floor),
 # kept so that the CPU's f64 tie flags stay equal to the JAX package's.
@@ -190,6 +199,16 @@ def _tie_flags(costs, m, scale2, any_valid):
     return (near.sum(dim=1) > 1) & any_valid
 
 
+def _occupied(test_mask, ref_mask, F, device):
+    """bool[F]: both sets of the pair hold a valid point (masks None: every
+    slot valid).  An empty set costs 0 at every angle, so its pair is
+    certified and never flagged: the answer is grid slot 0 in every dtype
+    (padded pairs of a cohort batch are such pairs)."""
+    if test_mask is None:
+        return torch.ones((F,), dtype=torch.bool, device=device)
+    return test_mask.any(dim=1) & ref_mask.any(dim=1)
+
+
 def _point_scale2(test, ref):
     """Per-frame max squared point radius over both sets [F] (padding rows
     are zeros and cannot raise the max)."""
@@ -205,7 +224,7 @@ def _take(x, idx):
 def search_range_batched(
     test, ref, test_mask, ref_mask,
     step_deg: float, range_deg: float, centers, limes_deg: float,
-    dense: bool = False,
+    use_pallas: bool = False, dense: bool = False,
 ):
     """One ``search_range`` stage batched over the frame axis.
 
@@ -213,7 +232,10 @@ def search_range_batched(
     falling back to the center where the grid is degenerate) and the
     certification flag (True = a near-tie within the rounding band; the
     argmin may differ between backends and needs exact repair).  Parity:
-    process_utils.rs:33-75.
+    process_utils.rs:33-75.  ``use_pallas`` chooses between the JAX
+    package's two table implementations, which give the same result; the
+    port has one route (the kernel on CUDA tensors, the plain version on
+    CPU tensors), so it changes nothing.
     """
     if step_deg <= 0.0:
         return centers, torch.zeros(centers.shape, dtype=torch.bool, device=centers.device)
@@ -228,7 +250,8 @@ def search_range_batched(
     best = _take(angles, best_k)
     any_valid = valid.any(dim=1)
     m = costs.amin(dim=1)
-    tie = _tie_flags(costs, m, _point_scale2(test, ref), any_valid)
+    live = any_valid & _occupied(test_mask, ref_mask, len(m), m.device)
+    tie = _tie_flags(costs, m, _point_scale2(test, ref), live)
     # fully-inverted window (center beyond limes +/- range): the clamped
     # start angle, i.e. grid slot 0, matches the reference's clamp
     return torch.where(any_valid, best, angles[:, 0]), tie
@@ -313,26 +336,37 @@ def search_range_batched_pruned(
     k_best = torch.clamp(k_best, max=K - 1)  # all-inf rows: clamp for the gather
     best = _take(angles, k_best)
     any_valid = valid.any(dim=1)
+    occupied = _occupied(test_mask, ref_mask, len(m), m.device)
+    live = any_valid & occupied
     pruned_answer = torch.where(any_valid, best, angles[:, 0])
     scale2 = _point_scale2(test, ref)
     # evaluated-candidate ties; unevaluated ones are excluded by the
     # band-aware certificate below (cost >= lb > m + band when certified)
-    tie_eval = _tie_flags(exact, m, scale2, any_valid)
+    tie_eval = _tie_flags(exact, m, scale2, live)
 
     # certificate: every unevaluated candidate's lower bound strictly above
-    # m by at least max(1e-5 relative, the argmin-certification band)
+    # m by at least max(1e-5 relative, the argmin-certification band).
+    # A zero-cost optimum (m <= 0) certifies on its own in float64, the
+    # JAX package's clause bit for bit.  In float32 it certifies only
+    # where the unevaluated lower bounds clear the band's floor too: an
+    # f32 winner of cost exactly 0 can hide an unevaluated f64 zero at a
+    # lower index whose f32 lower bound sits within the floor
+    # (tests/test_torch_band.py pins such a set).
     lb_rest = lb.scatter(1, sel_idx, float("inf"))
     lb_rest_min = lb_rest.amin(dim=1)
     rel = torch.tensor(1e-5, dtype=lb.dtype, device=lb.device)
     margin = torch.maximum(lb_rest_min * rel, _band(m, scale2))
+    zero_cost = m <= 0.0
+    if m.dtype == torch.float32:
+        zero_cost = zero_cost & (lb_rest_min > margin)
     cert = (
         (m < lb_rest_min - margin)
-        | (m <= 0.0)  # zero-cost optimum: lb==0 ties are all selected
+        | zero_cost
         | torch.isinf(lb_rest_min)  # nothing unevaluated (or all invalid)
-        | ~any_valid
+        | ~live
     )
     # m <= 0 certifies the answer but exact zero ties still need repair
-    zero_tie = (m <= 0.0) & ((exact <= 0.0).sum(dim=1) > 1) & any_valid
+    zero_tie = (m <= 0.0) & ((exact <= 0.0).sum(dim=1) > 1) & live
 
     prune_stats["stages"] += 1
     if bool(cert.all()):
@@ -344,7 +378,7 @@ def search_range_batched_pruned(
     bk = torch.argmin(costs, dim=1)
     b = _take(angles, bk)
     mf = costs.amin(dim=1)
-    tf = _tie_flags(costs, mf, scale2, any_valid)
+    tf = _tie_flags(costs, mf, scale2, live)
     return torch.where(any_valid, b, angles[:, 0]), tf
 
 
@@ -447,7 +481,7 @@ def _multires_rotation_search_impl(
         )
         best, tie = search(
             test, ref, test_mask, ref_mask, step_deg, range_deg, centers,
-            range_deg, dense,
+            range_deg, dense=dense,
         )
         # single-stage plan: the "final stage" IS the whole search
         return best, tie, no_flags, tie, centers
@@ -474,7 +508,7 @@ def _multires_rotation_search_impl(
         )
         best, tie = search(
             t, r, tm, rm, stage_step, stage_range, stage_centers, range_deg,
-            dense,
+            dense=dense,
         )
         # a near-tie at ANY stage can move the refinement window, so the
         # whole search is flagged; the split into early/final stages lets
@@ -497,14 +531,15 @@ def _resolve_plan(step_deg, range_deg, bruteforce) -> bool:
 
 def multires_rotation_search(
     test, ref, test_mask, ref_mask, step_deg: float, range_deg: float,
-    bruteforce: bool = False, dense: bool = False,
+    bruteforce: bool = False, use_pallas=None, dense: bool = False,
 ):
     """Best rotation per frame pair: full ladder (or single brute-force
     sweep), all stages batched over the frame axis.
 
     test/ref: [F, N|M, 2] centered point sets; masks [F, N|M] (ignored when
     ``dense``).  Returns ``(best [F], tie [F])``: best angles in radians plus
-    the argmin-certification flags."""
+    the argmin-certification flags.  ``use_pallas`` changes nothing, as on
+    :func:`search_range_batched`."""
     test, ref, test_mask, ref_mask = _contiguous(test, ref, test_mask, ref_mask)
     best, tie, _te, _tf, _c = _multires_rotation_search_impl(
         test, ref, test_mask, ref_mask, float(step_deg), float(range_deg),
@@ -521,7 +556,7 @@ def multires_rotation_search_packed(
     """:func:`multires_rotation_search` packed as one ``[2F]`` f64 tensor
     (first half angles, second half 0/1 tie flags)."""
     best, tie = multires_rotation_search(
-        test, ref, test_mask, ref_mask, step_deg, range_deg, bruteforce, dense
+        test, ref, test_mask, ref_mask, step_deg, range_deg, bruteforce, dense=dense
     )
     return torch.cat([best.to(torch.float64), tie.to(torch.float64)])
 

@@ -155,6 +155,9 @@ def sharded_multires_search(
     r_h = np.asarray(ref, dtype=np.float64)
     tm_h = np.asarray(test_mask, dtype=bool)
     rm_h = np.asarray(ref_mask, dtype=bool)
+    # an empty set costs 0 at every angle: its pair is never flagged, as in
+    # ops.rotation_search
+    ties &= tm_h.any(axis=1) & rm_h.any(axis=1)
     return repair_sets(
         best, ties, lambda j: (t_h[j][tm_h[j]], r_h[j][rm_h[j]]),
         float(step_deg), float(range_deg), bruteforce, "angle-shard pair",

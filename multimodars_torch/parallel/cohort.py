@@ -12,8 +12,9 @@ CPU (SURVEY.md §2.5).
 The JAX package also dispatches a large batch in waves of a pair count
 tuned for its accelerator (``_MAX_PAIRS_PER_WAVE``); the port does not: a
 shard's slab is one search, whose kernel wrapper slices it only at the
-kernel grid's limit (``ops.sweep.MAX_PAIRS``).  Slabs may be uneven, so no
-padding pairs are added.
+kernel grid's limit (``ops.sweep.MAX_PAIRS``).  Slabs may be uneven, so the
+port needs no padding pairs; a batch padded as the JAX package pads it is
+searched without flags on its padded pairs.
 """
 
 from __future__ import annotations
@@ -38,12 +39,15 @@ def cohort_mesh(devices: Optional[Sequence] = None, axis: str = "pairs") -> Mesh
 
 
 def batched_pairs_from_geometries(
-    geometries: List[PyGeometry], sample_size: int
+    geometries: List[PyGeometry],
+    sample_size: int,
+    pad_pairs_to: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, List[int]]:
     """Concatenate every geometry's consecutive-frame pairs into one batch:
-    (test, ref, test_mask, ref_mask, pair_counts).  The JAX package's
-    ``pad_pairs_to`` (padding to a multiple of its mesh) has no use here:
-    a mesh takes uneven slabs."""
+    (test, ref, test_mask, ref_mask, pair_counts).  With ``pad_pairs_to``
+    the batch is padded to that many pairs, as the JAX package pads it:
+    pairs of zeros with all-False masks.  A search flags no padded pair
+    (an empty set costs 0 at every angle), so padding costs no repair."""
     from ..pipelines.align_within import _pack_centered_sets, batch_pairs
 
     packed = []
@@ -58,7 +62,11 @@ def batched_pairs_from_geometries(
             int(math.ceil(len(catheter0.points) * ratio)) if catheter0 is not None else None
         )
         packed.append(_pack_centered_sets(geometry, sample_size, ssc))
-    return (*batch_pairs(packed), [pts.shape[0] - 1 for pts, _ in packed])
+    batch = batch_pairs(packed)
+    extra = 0 if pad_pairs_to is None else max(pad_pairs_to - batch[0].shape[0], 0)
+    batch = [np.concatenate([x, np.zeros((extra,) + x.shape[1:], dtype=x.dtype)])
+             for x in batch]
+    return (*batch, [pts.shape[0] - 1 for pts, _ in packed])
 
 
 def _slab(x, rows: slice, device, dtype=None) -> torch.Tensor:

@@ -318,6 +318,96 @@ def test_congruent_set_swap_missed_by_the_old_band():
     assert fixed[0] == float(best64[0]) == float(theta[0, k64])
 
 
+def zero_cost_prune_set(s0, device="cpu", n=132):
+    """A set whose f32 pruned stage (step 1 degree, +-180) finds an
+    evaluated cost of exactly 0 while the f64 winner sits unevaluated at a
+    lower grid index.  Its points: ``s0`` and its turns by +1 ... +11
+    degrees as the plain f32 sweep rounds them on ``device`` (so the
+    strided outer set ``s0`` lands on them exactly: twelve lower bounds of
+    exactly 0 at 0 ... 11 degrees, whose exact costs are not near 0), the
+    four quarter turns of those (each coordinate in [1, 1.8), where a turn
+    by the f64 grid's -90 degrees is exact in f64 but, for |x| > 1.37, not
+    in f32) and the origin.  ``test`` holds ``s0`` at every 6th row, ``ref``
+    the origin (the lower bound's outer rows), both the same point set.
+    Returns (test [1, n, 2], ref [1, n, 2], angles, valid), f64 numpy /
+    torch."""
+    angles, valid = rs.candidate_angles(torch.zeros(1, dtype=torch.float64), 1.0, 180.0, 180.0)
+    th = angles.to(device=device, dtype=torch.float32).T
+    c, s = torch.cos(th)[:, 0].cpu(), torch.sin(th)[:, 0].cpu()
+    x, y = torch.tensor(s0, dtype=torch.float32)
+    k0 = int(torch.nonzero(angles[0] == 0.0)[0])
+    q = np.array([[float(x * c[k]- y * s[k]), float(x * s[k] + y * c[k])]
+                  for k in range(k0, k0 + 12)])
+    pts = np.concatenate([q, q[:, ::-1] * [1, -1], -q, q[:, ::-1] * [-1, 1], [[0.0, 0.0]]])
+    test = np.array([pts[0] if i % 6 == 0 else pts[1 + (i - 1 - i // 6) % (len(pts) - 1)]
+                     for i in range(n)])
+    ref = np.array([pts[-1] if i % 6 == 0 else pts[(i - 1 - i // 6) % len(pts)]
+                    for i in range(n)])
+    return test[None], ref[None], angles, valid
+
+
+# f32 points of coordinates in [1, 1.8): the first whose construction on
+# this platform's cosf / sinf has the properties the test needs is taken
+ZERO_COST_SEEDS = ((1.5, 1.25), (1.46, 1.25), (1.42, 1.25), (1.52, 1.15), (1.4, 1.1))
+
+
+def zero_cost_prune_case(device="cpu"):
+    """The first ``zero_cost_prune_set`` of ``ZERO_COST_SEEDS`` with: at
+    least 13 f32 lower bounds within the band's floor, the f64 winner among
+    them but not among the 12 the stage evaluates, and an evaluated f32
+    cost of exactly 0 (and which set failed how, where none has).  Returns
+    (test, ref, angles, valid, f64 winner index) or None."""
+    for s0 in ZERO_COST_SEEDS:
+        test, ref, angles, valid = zero_cost_prune_set(s0, device)
+        assert {tuple(p) for p in test[0]} == {tuple(p) for p in ref[0]}
+        t32, r32 = (torch.tensor(v, dtype=torch.float32, device=device) for v in (test, ref))
+        a32, v = angles.to(device=device, dtype=torch.float32), valid.to(device)
+        lb = rs._lb_cost_table(t32, r32, None, None, a32, v, rs._PRUNE_STRIDE, True)[0].cpu()
+        exact = sweep.cost_table(t32, r32, None, None, a32, v, dense=True)[0].cpu()
+        t64 = sweep.cost_table_plain(torch.tensor(test), torch.tensor(ref), None, None,
+                                     angles, valid, dense=True)[0]
+        w64 = int(t64.argmin())
+        floor = rs._TIE_FLOOR_F32 * EPS * EPS * float(rs._point_scale2(t32, r32)[0])
+        sel = torch.sort(lb, stable=True).indices[:rs._PRUNE_TOP]
+        if (int((lb <= floor).sum()) >= 13 and float(lb[w64]) <= floor
+                and w64 not in sel.tolist() and float(exact[sel].min()) == 0.0):
+            return test, ref, angles, valid, w64
+    return None
+
+
+def test_zero_cost_certificate_of_the_pruned_stage():
+    """C.4 (a): the f32 pruned stage evaluates a cost of exactly 0 while the
+    f64 winner, a lower-index exact zero in f64, is left unevaluated with
+    its lower bound inside the band's floor.  The zero-cost clause of
+    earlier checkouts certified the f32 answer unflagged; now the stage
+    falls back to the full sweep, whose band flags the near-zero winner,
+    and the repair lands on the f64 grid angle.  In f64 the clause is the
+    JAX package's: the stage certifies its zero-cost winner."""
+    case = zero_cost_prune_case()
+    assert case is not None, "no seed of ZERO_COST_SEEDS builds the case"
+    test, ref, angles, valid, w64 = case
+    centers = torch.zeros(1, dtype=torch.float64)
+    want = float(angles[0, w64])
+    assert math.isclose(math.degrees(want), -90.0)
+    before = dict(rs.prune_stats)
+    best, tie = rs.search_range_batched_pruned(
+        torch.tensor(test, dtype=torch.float32), torch.tensor(ref, dtype=torch.float32),
+        None, None, 1.0, 180.0, centers, 180.0, dense=True)
+    assert float(best[0]) == want or bool(tie[0])
+    assert bool(tie[0]) and rs.prune_stats["fallbacks"] == before["fallbacks"] + 1
+    from multimodars_torch.ops import argmin_repair
+
+    fixed = argmin_repair.repair_sets(best.numpy(), tie.numpy(),
+                                      lambda i: (test[0], ref[0]), 1.0, 180.0, True)
+    assert fixed[0] == want
+    before = dict(rs.prune_stats)
+    best64, _ = rs.search_range_batched_pruned(
+        torch.tensor(test), torch.tensor(ref), None, None, 1.0, 180.0, centers, 180.0,
+        dense=True)
+    assert float(best64[0]) == want and rs.prune_stats == dict(
+        before, stages=before["stages"] + 1)
+
+
 def test_band_constants_cover_the_derivation():
     """The constants of each band against the figures of its derivation;
     the float64 bands stay the JAX package's."""

@@ -823,6 +823,60 @@ def test_nearest_batch_matches_plain(cuda, dtype):
     assert torch.equal(got.cpu(), want.cpu())
 
 
+@pytest.mark.parametrize("n_pairs", [9, 13, 17])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_nearest_batch_past_one_launch_equals_single_picks(cuda, dtype, n_pairs):
+    """A pick batch of more than MAX_PAIRS pairs takes ceil(pairs / 8)
+    launches, the later ones writing their rows at an offset: its buffer
+    equals the plain version's, and each pair's rows equal the pair picked
+    on its own on the card."""
+    rng = np.random.default_rng(n_pairs)
+    a = torch.tensor(_cloud(30000, 7), dtype=dtype, device=cuda)
+    b = torch.tensor(_cloud(3000, 8), dtype=dtype, device=cuda)
+    pairs = []
+    for _ in range(n_pairs):
+        n, m = int(rng.integers(0, 3000)), int(rng.integers(1, 200))
+        pairs.append((int(rng.integers(0, 30000 - n)), n, int(rng.integers(0, 3000 - m)), m))
+    launches = nst.launches
+    got = nst.nearest_batch(a, b, pairs)
+    torch.cuda.synchronize()
+    assert nst.launches == launches + -(-n_pairs // nst.MAX_PAIRS)
+    assert torch.equal(got.cpu(), nst.nearest_batch_plain(a, b, pairs).cpu())
+    m1, idx, m2 = nst.views(got, dtype)
+    o = 0
+    for a_off, n, b_off, m in pairs:
+        one = nst.nearest(a[a_off:a_off + n], b[b_off:b_off + m])
+        for g, w in zip((m1, idx, m2), one):
+            assert torch.equal(g[o:o + n].cpu(), w.cpu())
+        o += n
+
+
+def test_zero_cost_certificate_on_the_card(cuda):
+    """C.4 (a) through the card's f32 pruned stage: the set of
+    tests/test_torch_band.py (its points turned as the card's plain
+    version turns them) returns the f64 winner or a flag, and the repair
+    lands on the f64 grid angle."""
+    from test_torch_band import ZERO_COST_SEEDS, zero_cost_prune_set
+
+    from multimodars_torch.ops import argmin_repair
+
+    centers = torch.zeros(1, dtype=torch.float64, device=cuda)
+    for s0 in ZERO_COST_SEEDS:
+        test, ref, angles, valid = zero_cost_prune_set(s0, device=cuda)
+        t64 = sweep.cost_table(torch.tensor(test, device=cuda), torch.tensor(ref, device=cuda),
+                               None, None, angles.to(cuda), valid.to(cuda), dense=True)
+        want = float(angles[0, int(t64.argmin())])
+        with mt.config.use(device="cuda", dtype=torch.float32):
+            best, tie = rs.search_range_batched_pruned(
+                torch.tensor(test, dtype=torch.float32, device=cuda),
+                torch.tensor(ref, dtype=torch.float32, device=cuda),
+                None, None, 1.0, 180.0, centers, 180.0, dense=True)
+            assert float(best[0]) == want or bool(tie[0])
+            fixed = argmin_repair.repair_sets(best.cpu().numpy(), tie.cpu().numpy(),
+                                              lambda i: (test[0], ref[0]), 1.0, 180.0, True)
+        assert fixed[0] == want
+
+
 def test_ccta_glue_on_cuda_matches_cpu(cuda):
     """The batched glue (``min_sqdist_pairs``, ``count_within_radius_pairs``,
     ``within_radius_of_any``) gives the CPU float64 answers on the card in

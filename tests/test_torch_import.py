@@ -148,17 +148,52 @@ _PARALLEL_NAMES = (
 @pytest.mark.parametrize("name", _PARALLEL_NAMES)
 def test_parallel_exports_jax_names(name):
     """``multimodars_torch.parallel`` exports the JAX package's eight names,
-    each with the JAX function's parameters, but for the JAX package's
-    ``pad_pairs_to`` of ``batched_pairs_from_geometries`` (the port's mesh
-    takes uneven slabs, so nothing is padded)."""
+    each with the JAX function's parameters (``pad_pairs_to`` of
+    ``batched_pairs_from_geometries`` included)."""
     from multimodars_torch import parallel as tp
     from multimodars_tpu import parallel as jp
 
     assert sorted(tp.__all__) == sorted(jp.__all__) == sorted(_PARALLEL_NAMES)
-    want = _parameters(getattr(jp, name))
-    if name == "batched_pairs_from_geometries":
-        want = [p for p in want if p[0] != "pad_pairs_to"]
-    assert _parameters(getattr(tp, name)) == want
+    assert _parameters(getattr(tp, name)) == _parameters(getattr(jp, name))
+
+
+def _public_callables(module):
+    """A module's ``__all__``, or (the ``ccta`` subpackage has none) its
+    public functions and classes defined in its own package."""
+    import inspect
+
+    if hasattr(module, "__all__"):
+        return list(module.__all__)
+    root = module.__name__.split(".")[0]
+    return sorted(n for n, v in vars(module).items() if not n.startswith("_")
+                  and (inspect.isfunction(v) or inspect.isclass(v))
+                  and v.__module__.startswith(root))
+
+
+@pytest.mark.parametrize("sub", ["", ".ops", ".parallel", ".ccta", ".io"])
+def test_public_signatures_equal_jax(sub):
+    """Every public name of the JAX package, of its ``ops``, ``parallel``,
+    ``ccta`` and ``io`` subpackages, takes in the port the JAX function's
+    parameters in their order with their defaults, where a signature can
+    be read; the only parameter the port may add is ``dense`` (default
+    False: every slot valid), so a caller's keywords never raise."""
+    import importlib
+    import inspect
+
+    jm = importlib.import_module("multimodars_tpu" + sub)
+    tm = importlib.import_module("multimodars_torch" + sub)
+    names = _public_callables(jm)
+    assert names
+    for name in names:
+        want = getattr(jm, name)
+        got = getattr(tm, name)
+        try:
+            want_params = _parameters(want)
+        except (TypeError, ValueError):
+            continue
+        extra = [p for p in _parameters(got) if p not in want_params]
+        assert extra in ([], [("dense", False)]), (name, extra)
+        assert [p for p in _parameters(got) if p not in extra] == want_params, name
 
 
 def test_from_array_cohort_takes_devices():
@@ -187,13 +222,23 @@ def test_model_class_exported(name):
 
 
 def test_port_sources_name_no_jax():
+    """No source of the port names JAX or the JAX package, and none imports
+    bench.py (which loads the JAX package's shim); chip_smoke.py, which
+    names the JAX package's kernels it replaces, imports none of the
+    three."""
+    import re
+
+    imports = re.compile(r"^\s*(from|import)\s+(jax|multimodars_tpu|bench)\b", re.M)
     offenders = []
     for path in sorted((REPO / "multimodars_torch").rglob("*")):
         if path.suffix not in (".py", ".cu") or "_build" in path.parts:
             continue
         text = path.read_text()
-        if "import jax" in text or "from jax" in text or "multimodars_tpu" in text:
+        if ("import jax" in text or "from jax" in text or "multimodars_tpu" in text
+                or imports.search(text)):
             offenders.append(str(path.relative_to(REPO)))
+    if imports.search((REPO / "chip_smoke.py").read_text()):
+        offenders.append("chip_smoke.py")
     assert offenders == []
 
 

@@ -1,5 +1,5 @@
 """The port's ``ops`` surface against the JAX package's: the five names and
-their parameters, the public masked Hausdorff on seeded inputs (broadcast
+their parameters, the TPU switches changing no bit, the public masked Hausdorff on seeded inputs (broadcast
 leading dims, 3-D points, empty sets, zero-size leading dims), the three
 search and Hausdorff cases of tests/test_core.py::TestEdgeCases on torch
 inputs, the dispatcher's device rule, and that the kernels' plain versions
@@ -31,8 +31,6 @@ _OPS_NAMES = (
     "hausdorff_sq_masked", "hausdorff_distance_masked", "search_range_batched",
     "multires_rotation_search", "rotation_cost_table",
 )
-# the JAX package's TPU switches, which the port does not take
-_TPU_SWITCHES = ("use_pallas", "angle_chunk")
 
 
 @pytest.fixture(autouse=True)
@@ -50,12 +48,12 @@ def _parameters(fn):
 @pytest.mark.parametrize("name", _OPS_NAMES)
 def test_ops_exports_jax_names(name):
     """``multimodars_torch.ops`` exports the JAX package's five names, each
-    with the JAX function's parameters but for the TPU switches; the port's
-    ``dense`` (every slot valid) may stand where the JAX function has
-    none."""
+    with the JAX function's parameters, its TPU switches (``use_pallas``,
+    ``angle_chunk``) included; the port's ``dense`` (every slot valid) may
+    stand where the JAX function has none."""
     assert list(tops.__all__) == list(jops.__all__)
     assert sorted(tops.__all__) == sorted(_OPS_NAMES)
-    want = [p for p in _parameters(getattr(jops, name)) if p[0] not in _TPU_SWITCHES]
+    want = _parameters(getattr(jops, name))
     got = _parameters(getattr(tops, name))
     assert [p for p in got if p[0] != "dense" or ("dense", False) in want] == want
     assert dict(got).get("dense", False) is False
@@ -293,3 +291,42 @@ def test_public_searches_match_jax():
     got = tops.rotation_cost_table(*t, angles, valid)
     want = jops.rotation_cost_table(*j, jnp.asarray(angles.numpy()), jnp.asarray(valid.numpy()))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=0.0)
+
+
+def _switch_case():
+    """The seeded batch of test_public_searches_match_jax as torch inputs,
+    its centers and its grid."""
+    rng = np.random.default_rng(9)
+    base = rng.normal(0.0, 2.0, (4, 24, 2))
+    test = base + rng.normal(0, 1e-2, base.shape)
+    mask = np.ones((4, 24), bool)
+    mask[1, -5:] = False
+    centers = torch.tensor([0.05, -0.1, 0.2, 0.0], dtype=torch.float64)
+    angles, valid = trs.candidate_angles(centers, 0.5, 10.0, 20.0)
+    return [torch.as_tensor(a) for a in (test, base, mask, mask)], centers, angles, valid
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_use_pallas_changes_no_bit(use_pallas):
+    """``use_pallas`` chooses an implementation in the JAX package; the
+    port has one route, and every value gives the default's bits."""
+    t, centers, _, _ = _switch_case()
+    for fn, args in ((tops.multires_rotation_search, (0.1, 20.0)),
+                     (tops.search_range_batched, (0.5, 10.0, centers, 20.0))):
+        want = fn(*t, *args)
+        for value in (None, use_pallas):
+            got = fn(*t, *args, use_pallas=value)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("chunk", [None, 1, 7, "K+3"])
+def test_angle_chunk_changes_no_bit(chunk):
+    """``angle_chunk`` (angles a distance tile takes in the JAX package) gives
+    the default's table bit for bit, K + 3 included; a value that is no
+    integer is refused."""
+    t, _, angles, valid = _switch_case()
+    want = tops.rotation_cost_table(*t, angles, valid)
+    value = angles.shape[1] + 3 if chunk == "K+3" else chunk
+    assert torch.equal(tops.rotation_cost_table(*t, angles, valid, angle_chunk=value), want)
+    with pytest.raises(TypeError):
+        tops.rotation_cost_table(*t, angles, valid, angle_chunk=2.5)

@@ -182,6 +182,45 @@ def test_cohort_uneven_split_bit_identical():
         np.testing.assert_array_equal(got, plain)
 
 
+@pytest.mark.parametrize("n", [9, 12])
+def test_padded_batch_equals_jax_and_raises_no_flag(n):
+    """``pad_pairs_to`` pads the seven pairs of three pullbacks to ``n`` as
+    the JAX package pads them (the same shapes, dtypes and values: zero
+    points, all-False masks).  A search of the padded batch, f64 and f32,
+    flags no padded pair, so padding costs no repair: the flags and the
+    repair counters equal the unpadded batch's, and so do its angles."""
+    from multimodars_torch.parallel.cohort import sharded_search
+
+    def geoms(pkg):
+        return [pkg.numpy_to_geometry(_case_arrays(s, k, 20 + 4 * s))
+                for s, k in ((1, 4), (2, 3), (3, 3))]
+
+    got = batched_pairs_from_geometries(geoms(mt), 20, pad_pairs_to=n)
+    want = jpar.batched_pairs_from_geometries(geoms(mj), 20, pad_pairs_to=n)
+    assert got[4] == want[4] == [3, 2, 2]
+    for g, w in zip(got[:4], want[:4]):
+        assert g.shape[0] == n and g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    test, ref, tm, rm, _ = got
+    assert not tm[7:].any() and not rm[7:].any()
+    mesh = cohort_mesh(_cpus(2))
+    for dtype in (torch.float64, torch.float32):
+        with mt.config.use(dtype=dtype):
+            best, ties = sharded_search(test, ref, tm, rm, 0.1, 20.0, mesh)
+            best7, ties7 = sharded_search(test[:7], ref[:7], tm[:7], rm[:7], 0.1, 20.0, mesh)
+            assert not ties[7:].any()
+            np.testing.assert_array_equal(ties[:7], ties7)
+            np.testing.assert_array_equal(best[:7], best7)
+            stats = []
+            for batch in (got[:4], [x[:7] for x in got[:4]]):
+                for k in t_repair.stats:
+                    t_repair.stats[k] = 0
+                out = cohort_relative_rotations(*batch, 0.1, 20.0, mesh)
+                stats.append((out[:7], dict(t_repair.stats)))
+            np.testing.assert_array_equal(stats[0][0], stats[1][0])
+            assert stats[0][1] == stats[1][1]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_cohort_tensor_inputs_equal_numpy(dtype):
     """Tensors are cast to the compute dtype and placed per shard, as the
