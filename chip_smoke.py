@@ -3472,7 +3472,9 @@ def band_search_run(torch, sweep, rs, run, coords):
     stats.update(pruned=rs.prune_stats["stages"], fallbacks=rs.prune_stats["fallbacks"])
     re64 = [(a, k) for a, k in seen if a[0].dtype == torch.float64]
     stats["f64_tables"] = len(re64)
-    stats["repair_s"] = sum(v[0] for k, v in trace.summary().items() if "repair" in k)
+    # the stages' own repair spans; argmin_repair.* nest inside them
+    stats["repair_s"] = sum(v[0] for k, v in trace.summary().items()
+                            if "repair" in k and not k.startswith("argmin_repair."))
     stats["f64_table_ms"] = sum(cuda_ms(torch, lambda: sweep.cost_table(*a, **k), 1)
                                 for a, k in re64)
     return stats, coords(out)

@@ -19,6 +19,7 @@ from .models.frame import PyFrame
 from .models.geometry import PyGeometry, PyGeometryPair
 from .models.point import PyContourPoint, PyContourType
 from .models.record import PyInputData, PyRecord
+from .utils.trace import trace
 
 
 def to_array(generic):
@@ -239,6 +240,7 @@ def _records_from_array(arr):
     return recs or None
 
 
+@trace("converters.numpy_to_inputdata")
 def numpy_to_inputdata(
     lumen_arr: np.ndarray,
     ref_point: np.ndarray,

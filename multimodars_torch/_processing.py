@@ -20,6 +20,7 @@ from .models.point import PyContourType
 from .models.record import PyInputData
 from .pipelines import entry as _entry
 from .utils.logs import logs_to_tuples
+from .utils.trace import trace
 
 
 def _default_contour_types() -> List[PyContourType]:
@@ -38,6 +39,7 @@ def _type_names(contour_types) -> List[str]:
     return out
 
 
+@trace("api.to_inputdata")
 def _to_inputdata(py_in) -> InputData:
     if isinstance(py_in, InputData):
         return py_in

@@ -31,6 +31,7 @@ import torch
 
 from ..config import config
 from ..utils.device import to_device
+from ..utils.trace import span
 from .rotation_search import (
     ladder_stages,
     multires_rotation_search_packed,
@@ -40,7 +41,7 @@ from .rotation_search import (
 TWO_PI = 2.0 * math.pi
 
 #: process-wide repair counters (observability + tests)
-stats = {"flagged": 0, "repaired": 0, "changed": 0}
+stats = {"flagged": 0, "repaired": 0, "changed": 0, "host_exact": 0}
 
 
 def certify_enabled() -> bool:
@@ -234,10 +235,11 @@ def repair_sets(
         return values
     values = np.array(values, dtype=np.float64, copy=True)
     pair_sets = [sets_of(i) for i in flagged]
-    tier2 = _device_f64_retier(
-        [t for t, _ in pair_sets], [r for _, r in pair_sets],
-        step_deg, range_deg, bruteforce,
-    )
+    with span("argmin_repair.device_f64"):
+        tier2 = _device_f64_retier(
+            [t for t, _ in pair_sets], [r for _, r in pair_sets],
+            step_deg, range_deg, bruteforce,
+        )
     host_idx = range(len(flagged))
     if tier2 is not None:
         best64, tie64 = tier2
@@ -248,19 +250,21 @@ def repair_sets(
                     stats["changed"] += 1
                 values[i] = best64[k]
         host_idx = [k for k in range(len(flagged)) if tie64[k]]
-    for k in host_idx:
-        i = flagged[k]
-        t, r = pair_sets[k]
-        exact = exact_ladder(t, r, step_deg, range_deg, bruteforce)
-        stats["repaired"] += 1
-        stats["host_exact"] = stats.get("host_exact", 0) + 1
-        if exact != values[i]:
-            stats["changed"] += 1
-            _note(
-                f"{what} {i}: {math.degrees(values[i]):+.4f} deg -> "
-                f"{math.degrees(exact):+.4f} deg (exact f64)"
-            )
-        values[i] = exact
+    if host_idx:
+        with span("argmin_repair.host_exact"):
+            for k in host_idx:
+                i = flagged[k]
+                t, r = pair_sets[k]
+                exact = exact_ladder(t, r, step_deg, range_deg, bruteforce)
+                stats["repaired"] += 1
+                stats["host_exact"] += 1
+                if exact != values[i]:
+                    stats["changed"] += 1
+                    _note(
+                        f"{what} {i}: {math.degrees(values[i]):+.4f} deg -> "
+                        f"{math.degrees(exact):+.4f} deg (exact f64)"
+                    )
+                values[i] = exact
     return values
 
 

@@ -148,16 +148,17 @@ def between_stage(
     angle per slot and the (reference, target) clouds it was searched on."""
     between_sample = max(sample_size, 500)
     preps, clouds = [], []
-    for A, B in pairs_defs:
-        ca = A.frames[A.ref_or_proximal_idx()].centroid
-        cb = B.frames[B.ref_or_proximal_idx()].centroid
-        t0 = tuple(ca[k] - cb[k] for k in range(3))
-        cloud_ref = extract_geometry_points(A, between_sample)
-        cloud_tgt = extract_geometry_points(B, between_sample) + np.array(
-            [t0[0], t0[1]]
-        )
-        preps.append((ca, t0))
-        clouds.append((cloud_ref, cloud_tgt))
+    with span("align_between.clouds"):
+        for A, B in pairs_defs:
+            ca = A.frames[A.ref_or_proximal_idx()].centroid
+            cb = B.frames[B.ref_or_proximal_idx()].centroid
+            t0 = tuple(ca[k] - cb[k] for k in range(3))
+            cloud_ref = extract_geometry_points(A, between_sample)
+            cloud_tgt = extract_geometry_points(B, between_sample) + np.array(
+                [t0[0], t0[1]]
+            )
+            preps.append((ca, t0))
+            clouds.append((cloud_ref, cloud_tgt))
     with span("align_between.search"):
         rot, ties = split_packed(dispatch_between_search(clouds, step_deg, range_deg))
     with span("align_between.repair"):

@@ -265,6 +265,7 @@ def _wall_tensor(tg: TensorGeometry, anomalous: bool) -> None:
         tg.con_centroid["Wall"][aortic_frames[valid]] = cen_src[valid]
 
 
+@trace("align_within.validate_pack")
 def _validate_and_pack(geometry, sample_size: int):
     """Validate one input (PyGeometry or TensorGeometry) and produce its
     centered sample sets.  Returns (object_or_None, tensor_or_None, pts,
@@ -337,6 +338,7 @@ def _ref_or_proximal_idx_tensor(tg: TensorGeometry) -> int:
     return int(tg.ids[-1])
 
 
+@trace("align_within.materialize")
 def _finish_materialize_tensor(
     tg: TensorGeometry, logs: List[AlignLog], anomalous: bool, verbose: bool
 ) -> Tuple[PyGeometry, List[AlignLog], bool]:
