@@ -4,11 +4,23 @@ averaging.
 Parity: ``src/intravascular/processing/postprocessing.rs`` of the reference,
 including its quirks (signed sample-rate comparison, original-pair indexing
 for the final z re-translation).
+
+Two forms of one algorithm.  :func:`postprocess_geom_pair` packs each
+geometry once into per-kind ``[F, P, 3]`` stacks (:class:`TensorGeometry`),
+runs every step as an array pass over them and materialises the pair once,
+its contours viewing fresh blocks.  The object functions below it
+(:func:`resample_by_diff` ... :func:`postprocess_geom_pair_objects`) take
+the pairs the stacks cannot hold exactly (ragged kinds, several reference
+points, a wall too short for its stack), under the span
+``postprocess.object_path``.  Both run the same float64 operations in the
+same order, so their results are equal bit for bit
+(``tests/test_torch_postprocess_stacks.py``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -16,6 +28,8 @@ from ..models.contour import PyContour
 from ..models.frame import PyFrame
 from ..models.geometry import PyGeometry, PyGeometryPair
 from ..models.point import PyContourPoint
+from ..models.tensor import TensorGeometry, row_blocks
+from ..utils.trace import span
 from . import wall
 
 EXTRA_KINDS = ("Eem", "Calcification", "Sidebranch", "Catheter", "Wall")
@@ -233,12 +247,12 @@ def adjust_walls_anomalous_geom_pair(geom_pair: PyGeometryPair) -> PyGeometryPai
     )
 
 
-def postprocess_geom_pair(
+def postprocess_geom_pair_objects(
     geom_pair: PyGeometryPair, tol: float, anomalous: bool
 ) -> PyGeometryPair:
     """Resample the pair to a common z-spacing, re-align the reference z,
-    trim to symmetric counts, and (if anomalous) average the walls.
-    Parity: postprocessing.rs:12-87."""
+    trim to symmetric counts, and (if anomalous) average the walls, one
+    frame object at a time.  Parity: postprocessing.rs:12-87."""
     avg_diff_a = get_avg_z_diff(geom_pair.geom_a)
     avg_diff_b = get_avg_z_diff(geom_pair.geom_b)
     same_sample_rate = (avg_diff_a - avg_diff_b) < tol  # signed, like the reference
@@ -296,3 +310,459 @@ def postprocess_geom_pair(
     if anomalous:
         trimmed = adjust_walls_anomalous_geom_pair(trimmed)
     return trimmed
+
+
+def postprocess_geom_pair(
+    geom_pair: PyGeometryPair, tol: float, anomalous: bool
+) -> PyGeometryPair:
+    """:func:`postprocess_geom_pair_objects` on the pair's packed frame
+    stacks: the same steps, branches, errors and float64 results, one array
+    pass a step.  Pairs the stacks cannot hold take the object path."""
+    out = _postprocess_stacks(geom_pair, tol, anomalous)
+    if out is None:
+        with span("postprocess.object_path"):
+            out = postprocess_geom_pair_objects(geom_pair, tol, anomalous)
+    return out
+
+
+# -- the stack path ---------------------------------------------------------
+#
+# Each step is first decided on the frames' metadata (z, ids, the reference
+# frame) as a _Plan: which input frames the output rows copy or blend, and
+# which z they take.  Trimming and the walls' truncation only select plan
+# rows, so each geometry's coordinates are gathered once, straight into the
+# rows the pair keeps; the arithmetic then runs on those rows alone.
+
+
+@dataclass
+class _Plan:
+    """The rows of one resampled geometry, before any coordinate is read.
+
+    Row j copies ``frames[lo[j]]``, or where ``blend`` is set, lerps from it
+    to ``frames[lo[j] + 1]`` at ``t[j]`` (``blend`` None: no row blends).
+    Rows with ``set_z`` take ``z[j]`` as PyFrame.set_value(z_value=...)
+    writes it, into every stored contour centroid or, with
+    ``lumen_centroid_z``, the lumen's alone.  ``ids`` are the ids the object
+    path's frames carry; ``ref_row`` is the row holding the reference
+    point."""
+
+    frames: List[PyFrame]
+    label: str
+    lo: np.ndarray
+    blend: Optional[np.ndarray]
+    t: Optional[np.ndarray]
+    z: np.ndarray
+    set_z: np.ndarray
+    ids: np.ndarray
+    ref_row: Optional[int]
+    lumen_centroid_z: bool
+
+    @property
+    def ref_id(self) -> Optional[int]:
+        """PyGeometry.find_ref_frame_idx of the rows."""
+        return None if self.ref_row is None else int(self.ids[self.ref_row])
+
+    def select(self, rows: np.ndarray) -> "_Plan":
+        """The rows at ``rows``, renumbered from 0 (trim_geom_pair)."""
+        ref_row = None
+        if self.ref_row is not None:
+            hit = np.flatnonzero(rows == self.ref_row)
+            ref_row = int(hit[0]) if hit.size else None
+        return _Plan(
+            self.frames, self.label, self.lo[rows],
+            None if self.blend is None else self.blend[rows],
+            None if self.t is None else self.t[rows],
+            self.z[rows], self.set_z[rows],
+            np.arange(rows.size, dtype=np.int64), ref_row,
+            self.lumen_centroid_z,
+        )
+
+
+def _postprocess_stacks(
+    geom_pair: PyGeometryPair, tol: float, anomalous: bool
+) -> Optional[PyGeometryPair]:
+    """The pair postprocessed on stacks, or None where a geometry or a
+    step's result does not fit them.  Every decision reads the input pair as
+    :func:`postprocess_geom_pair_objects` does, so it raises the same errors
+    at the same steps."""
+    geom_a, geom_b = geom_pair.geom_a, geom_pair.geom_b
+    avg_diff_a = get_avg_z_diff(geom_a)
+    avg_diff_b = get_avg_z_diff(geom_b)
+    same_sample_rate = (avg_diff_a - avg_diff_b) < tol  # signed, like the reference
+
+    ref_idx_a = geom_a.find_ref_frame_idx()
+    ref_idx_b = geom_b.find_ref_frame_idx()
+    if ref_idx_a is None or ref_idx_b is None:
+        raise ValueError("No reference point found in any frame")
+    ref_z_a = geom_a.frames[ref_idx_a].centroid[2]
+    ref_z_b = geom_b.frames[ref_idx_b].centroid[2]
+
+    if same_sample_rate:
+        mean_diff = (avg_diff_a + avg_diff_b) / 2.0
+        plan_a = _resample_plan(geom_a, mean_diff)
+        plan_b = _resample_plan(geom_b, mean_diff)
+    elif avg_diff_a < avg_diff_b:
+        z_coords = predict_z_positions(ref_z_b, *_z_span(geom_b), avg_diff_a)
+        plan_a = _resample_plan(geom_a, avg_diff_a)
+        plan_b = _regrid_plan(geom_b, z_coords)
+    else:
+        z_coords = predict_z_positions(ref_z_a, *_z_span(geom_a), avg_diff_b)
+        plan_a = _regrid_plan(geom_a, z_coords)
+        plan_b = _resample_plan(geom_b, avg_diff_b)
+    if plan_a is None or plan_b is None:
+        return None
+
+    # final z re-alignment: the ORIGINAL pair indexed with the resampled
+    # reference ids (postprocessing.rs:72-78), list indexing and its errors
+    ref_idx_a_rs = plan_a.ref_id
+    ref_idx_b_rs = plan_b.ref_id
+    if ref_idx_a_rs is None or ref_idx_b_rs is None:
+        raise ValueError("No reference point found in any frame")
+    translation = (
+        geom_a.frames[ref_idx_a_rs].centroid[2]
+        - geom_b.frames[ref_idx_b_rs].centroid[2]
+    )
+
+    plan_a, plan_b = _trim_plans(plan_a, plan_b)
+    if anomalous:  # the walls' step zips the frames
+        n = min(plan_a.lo.size, plan_b.lo.size)
+        plan_a, plan_b = (p if p.lo.size == n else p.select(np.arange(n))
+                          for p in (plan_a, plan_b))
+    rebuilt = "Wall" if anomalous else None
+    stack_a = _run_plan(plan_a, rebuilt)
+    stack_b = None if stack_a is None else _run_plan(plan_b, rebuilt)
+    if stack_b is None:
+        return None
+    stack_a.translate_per_frame(np.tile((0.0, 0.0, translation), (stack_a.n_frames, 1)))
+    if anomalous and not _adjust_walls_stacks(stack_a, stack_b):
+        return None
+    return PyGeometryPair(stack_a.to_geometry(), stack_b.to_geometry(), geom_pair.label)
+
+
+def _z_span(geometry: PyGeometry) -> Tuple[float, float]:
+    """(start, stop) of the first and last frames' z, ascending."""
+    end_zero = geometry.frames[0].centroid[2]
+    end_n = geometry.frames[-1].centroid[2]
+    return (end_zero, end_n) if end_zero < end_n else (end_n, end_zero)
+
+
+def _first_ref(frames: List[PyFrame]) -> Optional[int]:
+    return next((i for i, f in enumerate(frames) if f.reference_point is not None), None)
+
+
+def _resample_plan(geometry: PyGeometry, diff: float) -> _Plan:
+    """:func:`resample_by_diff`: the frames rolled to the min-z frame, every
+    frame after the first at ``start_z + i * diff``."""
+    frames = geometry.frames
+    if frames:
+        min_idx = int(np.argmin([f.centroid[2] for f in frames]))
+        if min_idx != 0:
+            frames = frames[min_idx:] + frames[:min_idx]
+    F = len(frames)
+    z = np.empty(F)
+    if F:
+        z[0] = np.nan
+        z[1:] = frames[0].centroid[2] + np.arange(1, F) * diff
+    return _Plan(
+        frames, geometry.label, np.arange(F), None, None, z,
+        np.arange(F) >= 1, np.array([f.id for f in frames], dtype=np.int64),
+        _first_ref(frames), False,
+    )
+
+
+def _regrid_plan(geometry: PyGeometry, z_coords: List[float]) -> Optional[_Plan]:
+    """:func:`new_frames_by_sample_rate` as one search over a [Z, F]
+    comparison, keeping the object path's first-match rules: the exact match
+    is the first frame within 1e-9, the bracket the first consecutive pair in
+    stored order with z1 <= z <= z2, and the grid stops at the first z above
+    the last frame's.  None where two rows would copy the reference frame."""
+    frames = geometry.frames
+    F = len(frames)
+    fz = np.array([f.centroid[2] for f in frames])
+    z = np.sort(np.asarray(z_coords, dtype=np.float64))
+    over = z > fz[-1]
+    if over.any():
+        z = z[: int(np.argmax(over))]
+    exact = np.abs(fz[None, :] - z[:, None]) < 1e-9
+    has_exact = exact.any(axis=1)
+    src = exact.argmax(axis=1)
+    if F > 1:
+        inside = (fz[None, :-1] <= z[:, None]) & (fz[None, 1:] >= z[:, None])
+        has_pair = inside.any(axis=1)
+        lower = inside.argmax(axis=1)
+    else:
+        has_pair = np.zeros(z.shape, dtype=bool)
+        lower = np.zeros(z.shape, dtype=np.int64)
+    blend = ~has_exact
+    if (blend & ~has_pair).any():
+        raise ValueError("Cannot find frames to interpolate between")
+    lo = np.where(blend, lower, src)
+    lower_z, upper_z = fz[lo], fz[np.minimum(lo + 1, F - 1)]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(blend, (z - lower_z) / (upper_z - lower_z), 0.0)
+    frame_z = np.where(blend, z, lower_z)
+    order = np.argsort(frame_z, kind="stable")  # list.sort by z: stable
+    lo, blend, t, frame_z = lo[order], blend[order], t[order], frame_z[order]
+    ref = _first_ref(frames)
+    carriers = np.flatnonzero(~blend & (lo == ref)) if ref is not None else []
+    if len(carriers) > 1:
+        return None
+    n = lo.size
+    return _Plan(
+        frames, geometry.label, lo, blend, t, frame_z, np.ones(n, dtype=bool),
+        np.arange(n, dtype=np.int64), int(carriers[0]) if len(carriers) else None,
+        True,
+    )
+
+
+def _trim_plans(plan_a: _Plan, plan_b: _Plan) -> Tuple[_Plan, _Plan]:
+    """:func:`trim_geom_pair`: the rows of the same slices, renumbered."""
+    ref_idx_a = plan_a.ref_id or 0
+    ref_idx_b = plan_b.ref_id or 0
+    frames_before = min(ref_idx_a, ref_idx_b)
+    frames_after = min(plan_a.lo.size - ref_idx_a, plan_b.lo.size - ref_idx_b)
+
+    def trim(plan: _Plan, ref_idx: int) -> _Plan:
+        F = plan.lo.size
+        start = ref_idx - frames_before
+        end = ref_idx + frames_after
+        rows = np.arange(F)
+        if start < end and end <= F:
+            rows = rows[start:end]
+        return plan.select(rows)
+
+    return trim(plan_a, ref_idx_a), trim(plan_b, ref_idx_b)
+
+
+def _run_plan(plan: _Plan, rebuilt: Optional[str]) -> Optional[TensorGeometry]:
+    """The plan's rows as fresh stacks: frames copied, rows blended, z
+    written.  None where the frames do not pack."""
+    if plan.blend is None:
+        stack = _pack([plan.frames[i] for i in plan.lo], plan.label, rebuilt)
+        if stack is None:
+            return None
+    else:
+        source = _pack(plan.frames, plan.label, rebuilt)
+        if source is None:
+            return None
+        rows = np.flatnonzero(plan.blend)
+        if rows.size and source.kinds[1:] != [k for k in EXTRA_KINDS if k in source.kinds]:
+            # a blended frame's extras come in EXTRA_KINDS' order, a copied
+            # frame's in its own: one stack order cannot give both
+            return None
+        stack = source.take(plan.lo)
+        stack.ref_pos = plan.ref_row
+        stack.ref_point = None if plan.ref_row is None else source.ref_point.copy()
+        if rows.size:
+            _blend_rows(stack, source, rows, plan.lo[rows], plan.t[rows])
+    stack.ids = plan.ids
+    rows = np.flatnonzero(plan.set_z)
+    if rows.size and rows[-1] - rows[0] + 1 == rows.size:
+        rows = slice(int(rows[0]), int(rows[-1]) + 1)  # a view: no gather
+    _set_frame_z(stack, rows, plan.z[rows], plan.lumen_centroid_z)
+    return stack
+
+
+def _blend_rows(stack: TensorGeometry, source: TensorGeometry, rows, lo, t) -> None:
+    """:func:`blend_contour` for every kind at once: rows ``rows`` of
+    ``stack`` lerp from ``source`` row ``lo`` to ``lo + 1`` at ``t``.  x and
+    y of the points and frame centroids, the contour centroids (0 where
+    either is None) and the thicknesses (None where either is); z is the
+    caller's.  An extra is present where both frames carry it."""
+    hi = lo + 1
+    tc = t[:, None]
+    for k in source.kinds:
+        coords = source.coords[k]
+        for b in row_blocks(rows.size, coords.shape[1] * 16):
+            pa, pb = coords[lo[b], :, :2], coords[hi[b], :, :2]
+            stack.coords[k][rows[b], :, :2] = pa + tc[b, :, None] * (pb - pa)
+        if k != "Lumen":
+            stack.present[k][rows] = source.present[k][lo] & source.present[k][hi]
+        ca, cb = source.con_centroid[k][lo], source.con_centroid[k][hi]
+        both = ~(np.isnan(ca[:, 0]) | np.isnan(cb[:, 0]))
+        stack.con_centroid[k][rows] = np.where(both[:, None], ca + tc * (cb - ca), 0.0)
+        for dst, th in ((stack.aortic_th, source.aortic_th), (stack.pulm_th, source.pulm_th)):
+            dst[k][rows] = th[k][lo] + t * (th[k][hi] - th[k][lo])  # NaN: None
+    ca, cb = source.centroids[lo, :2], source.centroids[hi, :2]
+    stack.centroids[rows, :2] = ca + tc * (cb - ca)
+
+
+def _set_frame_z(stack: TensorGeometry, rows, z: np.ndarray, lumen_only: bool) -> None:
+    """PyFrame.set_value(z_value=...) on the frames at ``rows``: z of every
+    point, of the frame centroid and the reference point, and of the stored
+    contour centroids (of the lumen's alone with ``lumen_only``, as the
+    regrid's renumbering writes them)."""
+    stack.centroids[rows, 2] = z
+    for k in stack.kinds:
+        stack.coords[k][rows, :, 2] = z[:, None]
+        if k == "Lumen" or not lumen_only:
+            stack.con_centroid[k][rows, 2] = z  # NaN rows stay None
+    if stack.ref_pos is not None:
+        hit = np.flatnonzero(np.arange(stack.n_frames)[rows] == stack.ref_pos)
+        if hit.size:
+            stack.ref_point.z = float(z[hit[0]])
+
+
+def _pack(
+    frames: List[PyFrame], label: str, rebuilt: Optional[str] = None
+) -> Optional[TensorGeometry]:
+    """The frames, in this order, as fresh per-kind stacks, or None where the
+    stacks would not give the frames back exactly: no frames, a kind whose
+    point count varies or is 0, a contour whose kind or original frame is
+    not its key's or its lumen's, extras in an order the stack's kinds do
+    not keep, more than one reference point, or a NaN where the stack
+    writes None (a centroid's x, a thickness).  The kind ``rebuilt``, which
+    the caller replaces in every frame, is left out where it is the last."""
+    F = len(frames)
+    if F == 0:
+        return None
+    refs = [i for i, f in enumerate(frames) if f.reference_point is not None]
+    if len(refs) > 1:
+        return None
+    # kinds in first-appearance order; to_geometry writes every frame's
+    # extras in that order, so each frame must already hold them so
+    kinds = ["Lumen"]
+    layouts = {tuple(f.extras): None for f in frames}
+    for layout in layouts:
+        kinds.extend(k for k in layout if k not in kinds)
+    slot = {k: i for i, k in enumerate(kinds)}
+    for layout in layouts:
+        order = [slot[k] for k in layout]
+        if "Lumen" in layout or order != sorted(order):
+            return None
+    if kinds[-1] == rebuilt:  # replaced wholesale, and appended again last
+        kinds.pop()
+
+    lumen_orig = [f.lumen.original_frame for f in frames]
+    fields = {name: {} for name in (
+        "coords", "pt_frame", "pt_index", "pt_aortic", "con_centroid",
+        "aortic_th", "pulm_th", "present",
+    )}
+    for k in kinds:
+        cons = [f.lumen for f in frames] if k == "Lumen" else [f.extras.get(k) for f in frames]
+        rows = [i for i, c in enumerate(cons) if c is not None]
+        full = len(rows) == F
+        if not full:
+            cons = [cons[i] for i in rows]
+        xyz = [c._coords for c in cons]
+        cen = [c.centroid for c in cons]
+        ath = [c.aortic_thickness for c in cons]
+        pth = [c.pulmonary_thickness for c in cons]
+        P = xyz[0].shape[0]
+        if (
+            P == 0
+            or {a.shape for a in xyz} != {(P, 3)}
+            or {c.kind for c in cons} != {k}
+            or [c.original_frame for c in cons] != (
+                lumen_orig if full else [lumen_orig[i] for i in rows])
+        ):
+            return None
+        R = len(rows)
+        try:
+            packed = [
+                _concatenate(xyz, (R, P, 3), np.float64),
+                _concatenate([c._frame_idx for c in cons], (R, P), np.int64),
+                _concatenate([c._point_idx for c in cons], (R, P), np.int64),
+                _concatenate([c._aortic for c in cons], (R, P), bool),
+                np.array([(np.nan,) * 3 if c is None else c for c in cen], dtype=np.float64),
+                np.array([np.nan if v is None else v for v in ath], dtype=np.float64),
+                np.array([np.nan if v is None else v for v in pth], dtype=np.float64),
+            ]
+        except ValueError:  # index arrays of another length, a centroid not of 3
+            return None
+        if packed[4].shape != (R, 3) or any(
+            np.isnan(a).sum() != v.count(None)
+            for a, v in ((packed[4][:, 0], cen), (packed[5], ath), (packed[6], pth))
+        ):
+            return None  # a NaN where the stack would write None
+        present = np.ones(F, dtype=bool)
+        if not full:  # a kind some frames lack: its rows at their frames
+            present[:] = False
+            present[rows] = True
+            fill = (0.0, 0, 0, False, np.nan, np.nan, np.nan)
+            for j, a in enumerate(packed):
+                spread = np.full((F, *a.shape[1:]), fill[j], dtype=a.dtype)
+                spread[rows] = a
+                packed[j] = spread
+        for name, a in zip(fields, (*packed, present)):
+            fields[name][k] = a
+
+    ref_pos = refs[0] if refs else None
+    return TensorGeometry(
+        label=label,
+        kinds=kinds,
+        **fields,
+        ids=np.array([f.id for f in frames], dtype=np.int64),
+        orig_frame=np.array(lumen_orig, dtype=np.int64),
+        centroids=np.array([f.centroid for f in frames], dtype=np.float64),
+        ref_pos=ref_pos,
+        ref_point=None if ref_pos is None else frames[ref_pos].reference_point.copy(),
+    )
+
+
+def _concatenate(arrays: List[np.ndarray], shape, dtype) -> np.ndarray:
+    """The rows stacked into a fresh array of ``shape`` that owns its data,
+    so that the views into it that to_geometry makes share it as their 3-D
+    base (models.geometry.shared_contour_blocks)."""
+    out = np.empty(shape, dtype=dtype)
+    np.concatenate(arrays, out=out.reshape(-1, *shape[2:]))
+    return out
+
+
+def _adjust_walls_stacks(stack_a: TensorGeometry, stack_b: TensorGeometry) -> bool:
+    """:func:`adjust_walls_anomalous_geom_pair` on two stacks of one length:
+    the lumens' aortic thicknesses averaged frame by frame, then every
+    frame's Wall rebuilt from its lumen.  False where a wall does not fit
+    its stack."""
+    ta, tb = stack_a.aortic_th["Lumen"], stack_b.aortic_th["Lumen"]
+    adjusted = np.where(np.isnan(ta), tb, np.where(np.isnan(tb), ta, (ta + tb) / 2.0))
+    for stack in (stack_a, stack_b):
+        stack.aortic_th["Lumen"] = adjusted.copy()
+        if not _wall_stack(stack):
+            return False
+    return True
+
+
+def _wall_stack(stack: TensorGeometry) -> bool:
+    """wall.create_wall_frames(frames, anomalous=True) on a stack: each
+    lumen's Wall, the plain 1 mm offset where the lumen has no aortic
+    thickness, else the aortic composite (wall.aortic_walls_batch, which
+    keeps the lumen's stored centroid).  False where a composite would not
+    fill its row, or would keep a centroid that is None (the object path
+    raises there), or where frames without a Wall would list theirs in
+    another place than the stack."""
+    if "Wall" in stack.kinds and not stack.present["Wall"].all() and stack.kinds[-1] != "Wall":
+        return False
+    lumen = stack.coords["Lumen"]
+    thickness = stack.aortic_th["Lumen"]
+    plain = np.isnan(thickness)
+    walls = np.empty_like(lumen)
+    centroids = np.empty((stack.n_frames, 3))
+    if plain.any():
+        rows = np.flatnonzero(plain)
+        walls[rows], centroids[rows] = wall.offset_walls_batch(
+            lumen if rows.size == stack.n_frames else lumen[rows], 1.0
+        )
+    if not plain.all():
+        rows = np.flatnonzero(~plain)
+        kept = stack.con_centroid["Lumen"][rows]
+        if np.isnan(kept[:, 0]).any():
+            return False
+        batch = wall.aortic_walls_batch(
+            lumen[rows], stack.pt_index["Lumen"][rows], thickness[rows]
+        )
+        if batch is None:
+            return False
+        walls[rows] = batch
+        centroids[rows] = kept
+    if "Wall" not in stack.kinds:
+        stack.kinds.append("Wall")
+    stack.coords["Wall"] = walls
+    stack.present["Wall"] = np.ones(stack.n_frames, dtype=bool)
+    stack.pt_frame["Wall"] = stack.pt_frame["Lumen"].copy()
+    stack.pt_index["Wall"] = stack.pt_index["Lumen"].copy()
+    stack.pt_aortic["Wall"] = stack.pt_aortic["Lumen"].copy()
+    stack.con_centroid["Wall"] = centroids
+    stack.aortic_th["Wall"] = thickness.copy()
+    stack.pulm_th["Wall"] = stack.pulm_th["Lumen"].copy()
+    return True

@@ -13,6 +13,7 @@ import numpy as np
 from ..models.contour import PyContour
 from ..models.frame import PyFrame
 from ..models.point import PyContourPoint
+from ..models.tensor import point_means, row_blocks
 
 
 def offset_contour(
@@ -145,6 +146,19 @@ def aortic_walls_batch(
     spine can't hold; callers fall back to the object pipeline).
     """
     K, P = xyz.shape[:2]
+    coords = np.empty((K, P, 3))
+    for rows in row_blocks(K, P * 8):
+        if not _aortic_walls_rows(xyz[rows], pidx[rows], thickness[rows], coords[rows]):
+            return None
+    return coords
+
+
+def _aortic_walls_rows(
+    xyz: np.ndarray, pidx: np.ndarray, thickness: np.ndarray, coords: np.ndarray
+) -> bool:
+    """:func:`aortic_walls_batch` on a block of rows, written into
+    ``coords``; False where a row's segments overflow."""
+    P = xyz.shape[1]
     half = P // 2
     left_len = half + (P % 2)
     f64 = np.float64
@@ -166,7 +180,7 @@ def aortic_walls_batch(
     n_mid = np.rint(dist_right / total * half).astype(np.int64)
     n_low = half - n_up - n_mid
     if (n_low < 0).any():
-        return None
+        return False
 
     j = np.arange(half, dtype=np.int64)[None, :]
     nl = n_low[:, None]
@@ -188,25 +202,55 @@ def aortic_walls_batch(
 
     # left half: offset_contour(contour, 1.0, (0, half)) on the recomputed
     # 3-D centroid, identical expressions
-    centroid = xyz.mean(axis=1)
-    rel = xyz - centroid[:, None, :]
-    length = np.sqrt((rel * rel).sum(-1))
-    ok = length > np.finfo(np.float64).eps
-    ok = ok & (pidx >= 0) & (pidx <= half)
-    scale = np.where(ok, 1.0 / np.where(length > 0, length, 1.0), 0.0)
-
-    coords = np.empty((K, P, 3))
-    coords[:, :left_len] = (xyz + rel * scale[:, :, None])[:, :left_len]
+    lpidx = pidx[:, :left_len]
+    _offset_from(
+        xyz[:, :left_len], point_means(xyz), 1.0, (lpidx >= 0) & (lpidx <= half),
+        out=coords[:, :left_len],
+    )
     coords[:, left_len:, 0] = rx
     coords[:, left_len:, 1] = ry
     coords[:, left_len:, 2] = z[:, None]
-    return coords
+    return True
 
 
 def _create_wall_contour_aortic_only(contour: PyContour) -> PyContour:
     if contour.aortic_thickness is None:
         return offset_contour(contour, 1.0, None)
     return create_aortic_wall(contour)
+
+
+def _offset_from(
+    xyz: np.ndarray, centroids: np.ndarray, distance: float, keep=None, out=None
+) -> np.ndarray:
+    """Every point of a ``[K, N, 3]`` stack moved ``distance`` away from its
+    row's centroid, by :func:`offset_contour`'s expressions element for
+    element (``(rel * rel).sum(-1)`` adds x, y, then z), one coordinate
+    plane at a time, into ``out``; ``keep`` (bool ``[K, N]``) limits the
+    points that move."""
+    rel = [xyz[:, :, c] - centroids[:, c, None] for c in range(3)]
+    length = np.sqrt((rel[0] * rel[0] + rel[1] * rel[1]) + rel[2] * rel[2])
+    ok = length > np.finfo(np.float64).eps
+    if keep is not None:
+        ok &= keep
+    scale = np.where(ok, distance / np.where(length > 0, length, 1.0), 0.0)
+    if out is None:
+        out = np.empty(xyz.shape)
+    for c in range(3):
+        out[:, :, c] = xyz[:, :, c] + rel[c] * scale
+    return out
+
+
+def offset_walls_batch(stack: np.ndarray, distance: float):
+    """:func:`offset_contour` without point_range over a ``[K, N, 3]``
+    stack: ``(offset coordinates, recomputed centroids)``, the scalar
+    function's values bit for bit, a block of rows at a time."""
+    K, N = stack.shape[:2]
+    out = np.empty((K, N, 3))
+    centroids = np.empty((K, 3))
+    for rows in row_blocks(K, N * 8):
+        centroids[rows] = point_means(stack[rows])
+        _offset_from(stack[rows], centroids[rows], distance, out=out[rows])
+    return out, centroids
 
 
 def _offset_contours_batched(contours: List[PyContour], distance: float) -> List[PyContour]:
@@ -218,12 +262,7 @@ def _offset_contours_batched(contours: List[PyContour], distance: float) -> List
     walls: List[Optional[PyContour]] = [None] * len(contours)
     for n, idxs in groups.items():
         stack = np.stack([contours[i].xyz_view() for i in idxs])  # [K, N, 3]
-        centroids = stack.mean(axis=1)
-        rel = stack - centroids[:, None, :]
-        length = np.sqrt((rel * rel).sum(-1))
-        ok = length > np.finfo(np.float64).eps
-        scale = np.where(ok, distance / np.where(length > 0, length, 1.0), 0.0)
-        offset = stack + rel * scale[:, :, None]
+        offset, centroids = offset_walls_batch(stack, distance)
         for j, i in enumerate(idxs):
             src = contours[i]
             walls[i] = PyContour.from_arrays(
