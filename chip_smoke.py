@@ -429,6 +429,10 @@ OPS_PER_PAIR = 5
 # dx, dy (2 sub), dx*dx, dy*dy (2 mul), their sum (1 add; unfused, so that
 # d2 equals numpy's), the row's min and the column's min (2)
 OPS_PER_REFINE_PAIR = 7
+# the same pair as the benchmark's refine_roofline counts its least work
+# (portbench/harness/refinework.py): 4 for its d2 (a fused multiply-add
+# counted once) and 1 for each directed use
+OPS_PER_REFINE_PAIR_LEAST = 6
 
 
 def bound_ms(torch, pairs, elem_size, nbytes, ops=OPS_PER_PAIR):
@@ -474,6 +478,13 @@ def refine_bound(torch, p, pmask, q, qmask, K):
     for an empty set."""
     pairs, nbytes = _refine_pairs_bytes(p, pmask, q, qmask, K)
     return bound_ms(torch, pairs, p.element_size(), nbytes, OPS_PER_REFINE_PAIR)
+
+
+def refine_bound_least(torch, p, pmask, q, qmask, K):
+    """The bound of one refine table as the benchmark's ``refine_roofline``
+    counts it: every valid pair once at 6 operations."""
+    pairs, nbytes = _refine_pairs_bytes(p, pmask, q, qmask, K)
+    return bound_ms(torch, pairs, p.element_size(), nbytes, OPS_PER_REFINE_PAIR_LEAST)
 
 
 def refine_bound_directed(torch, p, pmask, q, qmask, K):
@@ -1354,12 +1365,15 @@ def check_refine_table(torch, hb, dtype, packed, K):
     pairs = 1.0 * p.shape[0] * p.shape[1] * q.shape[1]
     bound, by = refine_bound(torch, *args, K)
     old, _ = refine_bound_directed(torch, *args, K)
+    least, _ = refine_bound_least(torch, *args, K)
     dms = device_ms(torch, lambda: hb.hausdorff_sq_shared_ref(*args, K), "hausdorff_batch", 5)
     tag = "f32" if dtype == torch.float32 else "f64"
     say("refine", f"{tag} table [S*K {p.shape[0]}, n {p.shape[1]}, m {q.shape[1]}]: "
                   f"kernel {ms:.3f} ms ({pairs / ms / 1e9:.2f} T point pairs/s), device "
                   f"{dms:.3f} ms a launch, bound {bound:.3f} ms "
-                  f"({by}; 7 ops a valid pair), {100.0 * bound / ms:.1f}% of bound (the "
+                  f"({by}; 7 ops a valid pair, the kernel's count), {100.0 * bound / ms:.1f}% "
+                  f"of bound; at 6 ops a valid pair, the benchmark's refine_roofline count, "
+                  f"{least:.3f} ms, {100.0 * least / dms:.1f}% of device time (the "
                   f"5-op directed bound of earlier checkouts {old:.3f} ms, "
                   f"{100.0 * old / ms:.1f}%), plain {plain_ms:.3f} ms, max |kernel-plain| "
                   f"{err:.3e}, {int((k_out == 0).sum())} zero entries "

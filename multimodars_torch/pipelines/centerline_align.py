@@ -35,7 +35,7 @@ from ..ops.argmin_repair import certify_enabled, stats
 from ..ops.hausdorff_batch import hausdorff_sq_shared_ref
 from ..ops.rotation_search import _eps_eff
 from ..utils.device import to_device
-from ..utils.trace import span, trace
+from ..utils.trace import count, span, trace
 
 AlignTarget = Union[PyGeometry, PyGeometryPair]
 
@@ -504,8 +504,21 @@ def pack_refine(shift_entries, K: int):
 
 def refine_table(packed, K: int, dtype) -> np.ndarray:
     """The squared Hausdorff table ``[S*K]`` (float64 numpy) of the packed
-    refine inputs, evaluated on ``config.device`` in ``dtype``."""
+    refine inputs, evaluated on ``config.device`` in ``dtype``.
+
+    Counts, under the table's dtype (``trace.counts()``), the table
+    (``hausdorff_batch.tables.<dtype>``), its valid (candidate point, cloud
+    point) pairs (``hausdorff_batch.valid_pairs.<dtype>``) and the bytes of
+    its inputs and output (``hausdorff_batch.bytes.<dtype>``), from the
+    host masks before the upload."""
     p, pmask, q, qmask = packed
+    name = str(dtype).rsplit(".", 1)[-1]
+    elem = torch.empty((), dtype=dtype).element_size()
+    count(f"hausdorff_batch.tables.{name}")
+    count(f"hausdorff_batch.valid_pairs.{name}",
+          int((pmask.sum(1).reshape(-1, K) * qmask.sum(1)[:, None]).sum()))
+    count(f"hausdorff_batch.bytes.{name}",
+          (p.size + q.size + p.shape[0]) * elem + pmask.size + qmask.size)
     table = hausdorff_sq_shared_ref(
         to_device(p, dtype), to_device(pmask), to_device(q, dtype),
         to_device(qmask), K,
@@ -634,7 +647,8 @@ def refine_alignment_hausdorff(
     if shift_entries:
         dtype = config.compute_dtype
         S = len(shift_entries)
-        packed = pack_refine(shift_entries, K)
+        with span("centerline.refine_pack"):
+            packed = pack_refine(shift_entries, K)
         p_h, _, q_h, _ = packed
         refine_report.update(
             S=S, K=K, n=p_h.shape[1], m=q_h.shape[1], flagged=False,
@@ -905,6 +919,7 @@ def align_manual_rs(
     return target, resampled
 
 
+@trace("entry.align_combined")
 def align_combined_rs(
     centerline: PyCenterline,
     target: AlignTarget,

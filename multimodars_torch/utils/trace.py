@@ -12,6 +12,9 @@ that needs nothing beyond torch:
 - :func:`summary` returns cumulative per-stage :class:`Stage` totals
   ``(total_s, calls, self_s)`` for the process, :func:`reset` clears them:
   always recorded, for benchmarks and tests.
+- :func:`count` adds to a named counter kept beside the totals (work a
+  stage did, counted where it is done); :func:`counts` returns them and
+  :func:`reset` clears them with the totals.
 - ``MMTPU_TRACE=1`` (or :func:`enable`) also logs ``[mmtpu] <name>
   <seconds>`` to stderr as every stage finishes.
 - While a ``torch.profiler`` is recording, every span also opens a
@@ -52,6 +55,7 @@ class Stage(NamedTuple):
 
 _lock = threading.Lock()
 _totals: Dict[str, Stage] = {}
+_counts: Dict[str, int] = {}
 _local = threading.local()
 _enabled = os.environ.get("MMTPU_TRACE", "0") == "1"
 
@@ -68,6 +72,7 @@ def is_enabled() -> bool:
 def reset() -> None:
     with _lock:
         _totals.clear()
+        _counts.clear()
 
 
 def summary() -> Dict[str, Stage]:
@@ -75,6 +80,18 @@ def summary() -> Dict[str, Stage]:
     reset()."""
     with _lock:
         return dict(_totals)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> Dict[str, int]:
+    """{counter: total} accumulated since reset()."""
+    with _lock:
+        return dict(_counts)
 
 
 def _stack() -> list:
