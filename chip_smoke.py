@@ -1313,13 +1313,14 @@ def centerline_inputs(mt):
 
 @contextlib.contextmanager
 def recorded_refine(ca):
-    """Record the packed inputs of each refine table a run evaluates."""
+    """Record the packed inputs ``(p, pmask, q, qmask)`` of each refine
+    table a run evaluates: the grid's tensors on the card."""
     seen = []
     table = ca.refine_table
 
-    def spy(packed, K, dtype):
-        seen.append((packed, K))
-        return table(packed, K, dtype)
+    def spy(grid, K, dtype):
+        seen.append((tuple(grid[:4]), K))
+        return table(grid, K, dtype)
 
     ca.refine_table = spy
     try:
@@ -1349,8 +1350,8 @@ def nearest_exact_sq(a, b, k=8):
 def check_refine_table(torch, hb, dtype, packed, K):
     """The refine kernel against its plain version on the same CUDA tensors
     (equal bit for bit: both round every operation of d2, and min and max
-    are exact); returns (max abs err, kernel ms, plain ms, (bound ms,
-    bound by))."""
+    are exact), ``packed`` host arrays or tensors; returns (max abs err,
+    kernel ms, plain ms, (bound ms, bound by))."""
     import numpy as np
 
     dev = torch.device("cuda", 0)
@@ -1486,7 +1487,8 @@ def phase_centerline(torch, hb, mt, pair_ab, profile=False):
     check(d_tp <= 1e-9, "align_three_point differs between CUDA and the CPU")
 
     # the f64 kernel table of the winner's shift against numpy's
-    (p, pmask, q, qmask), K = tables64[0]
+    packed, K = tables64[0]
+    p, pmask, q, qmask = (t.cpu().numpy() for t in packed)
     si = report64["winner"][0]
     dev = torch.device("cuda", 0)
     sl = slice(si * K, (si + 1) * K)

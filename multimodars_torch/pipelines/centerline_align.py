@@ -8,10 +8,11 @@ The host parts are float64 numpy: centerline preprocessing, the per-frame
 rigid transforms, the three-point rotation search (all ~360/step candidate
 angles as one vectorised batch), the final application and the wall
 parallel transport.  The combined Hausdorff refinement builds every
-(centerline shift x angle) candidate on the host, emulating the
+(centerline shift x angle) candidate on ``config.device`` in float64,
+already padded for its table (:func:`build_refine_grid`), emulating the
 reference's per-candidate CCW re-sort with a cyclic roll gather, and
-evaluates the whole grid as one shared-reference masked Hausdorff table on
-``config.device`` in ``config.compute_dtype``
+evaluates the whole grid as one shared-reference masked Hausdorff table
+there in ``config.compute_dtype``
 (:func:`ops.hausdorff_batch.hausdorff_sq_shared_ref`: the hand-written
 kernel on CUDA, its plain version on the CPU).  A grid whose winner is not
 certified re-decides in float64 (see :func:`refine_alignment_hausdorff`).
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -173,13 +174,38 @@ def newell_normal(xyz: np.ndarray, centroid) -> np.ndarray:
     return np.array([0.0, 0.0, 1.0])
 
 
+def _newell_of(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """:func:`newell_normal` of every frame, bit for bit, from the ``[F, N]``
+    coordinates of its points about its centroid: the cross products are
+    the same elementwise products and differences as ``np.cross``, each
+    frame's sum runs over its points in order (an accumulation: numpy sums
+    a contiguous axis pairwise), and the norm is numpy's."""
+    if x.shape[1] < 3:
+        return np.tile([0.0, 0.0, 1.0], (x.shape[0], 1))
+    nx, ny, nz = (np.roll(a, -1, axis=1) for a in (x, y, z))
+    normal = np.stack([
+        np.cumsum(y * nz - z * ny, axis=1)[:, -1],
+        np.cumsum(z * nx - x * nz, axis=1)[:, -1],
+        np.cumsum(x * ny - y * nx, axis=1)[:, -1],
+    ], axis=-1)
+    out = np.empty_like(normal)
+    for f, v in enumerate(normal):
+        norm = _norm(v)
+        out[f] = v / norm if norm > 1e-12 else (0.0, 0.0, 1.0)
+    return out
+
+
 def rotation_matrix_axis_angle(axis: np.ndarray, angle: float) -> np.ndarray:
     """Rodrigues rotation matrix for a (normalised) axis."""
     axis = np.asarray(axis, dtype=np.float64)
     n = float(np.linalg.norm(axis))
     if n < 1e-300:
         return np.eye(3)
-    x, y, z = axis / n
+    return _unit_rotation(*(axis / n).tolist(), angle)
+
+
+def _unit_rotation(x: float, y: float, z: float, angle: float) -> np.ndarray:
+    """Rodrigues rotation matrix about the unit axis (x, y, z)."""
     c, s = math.cos(angle), math.sin(angle)
     C = 1.0 - c
     return np.array(
@@ -189,6 +215,12 @@ def rotation_matrix_axis_angle(axis: np.ndarray, angle: float) -> np.ndarray:
             [z * x * C - y * s, z * y * C + x * s, c + z * z * C],
         ]
     )
+
+
+def _norm(v: np.ndarray) -> float:
+    """``np.linalg.norm`` of a 1-D float64 vector by its own expression,
+    sqrt(v . v), without its dispatch (a third of a 3-vector map's cost)."""
+    return math.sqrt(float(np.dot(v, v)))
 
 
 @dataclass
@@ -215,30 +247,65 @@ def align_frame(contour: PyContour, cl_point: PyCenterlinePoint) -> FrameTransfo
     """Translate centroid onto the centerline point; rotate the Newell normal
     onto the tangent about their cross axis, pivoting at the centerline
     point.  Parity: align_algorithms.rs:128-173."""
-    xyz = contour.xyz()
+    xyz = contour.xyz_view()
     if contour.centroid is not None:
         centroid = np.asarray(contour.centroid, dtype=np.float64)
     else:
         centroid = xyz.mean(axis=0)
-    cl = np.array(
-        [cl_point.contour_point.x, cl_point.contour_point.y, cl_point.contour_point.z]
-    )
-    translation = cl - centroid
-
-    current_normal = newell_normal(xyz, centroid)
+    cp = cl_point.contour_point
+    cl = np.array([cp.x, cp.y, cp.z])
     desired_normal = np.asarray(cl_point.tangent, dtype=np.float64)
-    dn_norm = float(np.linalg.norm(desired_normal))
-    rotation = np.eye(3)
+    rotation = _rotation_onto(newell_normal(xyz, centroid), desired_normal,
+                              _norm(desired_normal))
+    return FrameTransformation(contour.original_frame, cl - centroid, rotation, cl)
+
+
+def _rotation_onto(
+    current_normal: np.ndarray, desired_normal: np.ndarray, dn_norm: float
+) -> np.ndarray:
+    """:func:`align_frame`'s rotation of a frame's Newell normal onto a
+    tangent of norm ``dn_norm``.  The clip and the cross product are taken
+    on Python floats and the norm by :func:`_norm`: the same roundings as
+    ``np.clip``, ``np.cross`` and ``rotation_matrix_axis_angle``'s
+    ``np.linalg.norm``, at a fraction of their cost on 3-vectors (the
+    refine makes one a (shift, frame))."""
     if dn_norm > 1e-12:
-        cosang = float(
-            np.clip(np.dot(current_normal, desired_normal) / dn_norm, -1.0, 1.0)
-        )
+        cosang = min(max(float(np.dot(current_normal, desired_normal) / dn_norm), -1.0), 1.0)
         angle = math.acos(cosang)
         if abs(angle) >= 1e-6:
-            axis = np.cross(current_normal, desired_normal)
-            if float(np.linalg.norm(axis)) >= 1e-6:
-                rotation = rotation_matrix_axis_angle(axis, angle)
-    return FrameTransformation(contour.original_frame, translation, rotation, cl)
+            (a0, a1, a2), (b0, b1, b2) = current_normal.tolist(), desired_normal.tolist()
+            axis = np.array([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0])
+            n = _norm(axis)
+            if n >= 1e-6:  # rotation_matrix_axis_angle(axis, angle)
+                return _unit_rotation(*(axis / n).tolist(), angle)
+    return np.eye(3)
+
+
+def _segment_maps(
+    centroids: np.ndarray, normals: np.ndarray, centerline: PyCenterline,
+    starts: Sequence[int],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``(A [S, F, 3, 3], b [S, F, 3])``: frame i's :func:`align_frame` map
+    onto centerline point ``start + i`` for each of ``starts``, from the
+    frames' ``[F, 3]`` centroids and Newell normals, bit for bit its
+    ``as_affine()``: the rotations and their matrix-vector products one at
+    a time, the elementwise differences and sums over all at once."""
+    F = len(centroids)
+    lo = min(starts)
+    points = centerline.points[lo : max(starts) + F]
+    pos = np.array([[p.contour_point.x, p.contour_point.y, p.contour_point.z] for p in points])
+    tangents = np.array([p.tangent for p in points], dtype=np.float64)
+    norms = [_norm(t) for t in tangents]
+    frame = np.tile(np.arange(F), len(starts))
+    point = (np.asarray(starts)[:, None] - lo + np.arange(F)).ravel()
+    A = np.array([
+        _rotation_onto(normals[i], tangents[j], norms[j])
+        for i, j in zip(frame.tolist(), point.tolist())
+    ])
+    pivot = pos[point]
+    shift = (pivot - centroids[frame]) - pivot  # translation - pivot
+    b = np.array([r @ v for r, v in zip(A, shift)]) + pivot
+    return A.reshape(len(starts), F, 3, 3), b.reshape(len(starts), F, 3)
 
 
 def get_transformations(
@@ -403,43 +470,46 @@ def refine_angles(
     return np.array(angles)
 
 
-@trace("centerline.refine_build")
-def build_refine_candidates(
+class RefineGrid(NamedTuple):
+    """The refine's table inputs on ``config.device`` in float64, made there
+    already padded: candidates ``p [S*K, n, 2]`` with ``pmask [S*K, n]``,
+    one filtered cloud per shift ``q [S, m, 2]`` with ``qmask [S, m]`` (n, m
+    the widest); and, on the host, each shift slot's centerline index, its
+    valid candidate points (frames x downsample) and its filtered cloud
+    ``[m_s, 2]``."""
+
+    p: torch.Tensor
+    pmask: torch.Tensor
+    q: torch.Tensor
+    qmask: torch.Tensor
+    idx: List[int]
+    n: List[int]
+    clouds: List[np.ndarray]
+
+
+def _refine_shifts(
     geometry: PyGeometry,
     centerline: PyCenterline,
     initial_cl_ref_idx: int,
-    angles: np.ndarray,
     mutated_points: np.ndarray,
     index_search_range: int,
-) -> List[Tuple[int, np.ndarray, np.ndarray]]:
-    """Every centerline shift's candidates on the host: a list of
-    ``(centerline index, candidate xy [K, n_s, 2], filtered cloud xy
-    [m_s, 2])`` for the shifts whose segment fits the centerline and whose
-    bounding box holds cloud points.  Parity: align_algorithms.rs:339-451."""
+) -> List[Tuple[int, np.ndarray, int]]:
+    """``(centerline index, filtered cloud xy [m_s, 2], downsample size)``
+    of every shift whose segment fits the centerline and whose bounding box
+    holds cloud points.  Parity: align_algorithms.rs:339-451."""
     len_frames = len(geometry.frames)
     cl_positions = centerline.positions()
-    n_points_per_frame = len(geometry.frames[0].lumen.points)
-
-    # static per-frame data
-    frame_xyz = [f.lumen.xyz() for f in geometry.frames]
-    frame_centroids = [
-        np.asarray(f.lumen.centroid if f.lumen.centroid is not None else fx.mean(axis=0))
-        for f, fx in zip(geometry.frames, frame_xyz)
-    ]
-
+    n_points_per_frame = geometry.frames[0].lumen.n_points
     delta_range = (
         [0]
         if index_search_range == 0
         else list(range(-index_search_range, index_search_range + 1))
     )
-
-    shift_entries = []
+    cloud = np.ascontiguousarray(mutated_points.T)  # [3, M]: one pass a bound
+    shifts = []
     for delta_idx in delta_range:
-        signed = initial_cl_ref_idx + delta_idx
-        if signed < 0:
-            continue
-        current_idx = signed
-        if current_idx + len_frames >= len(centerline.points):
+        current_idx = initial_cl_ref_idx + delta_idx
+        if current_idx < 0 or current_idx + len_frames >= len(centerline.points):
             continue
         cl_end_idx = current_idx + len_frames
 
@@ -448,7 +518,9 @@ def build_refine_candidates(
         end_p = cl_positions[cl_end_idx - 1]
         lo = np.minimum(start_p, end_p) - 5.0
         hi = np.maximum(start_p, end_p) + 5.0
-        sel = ((mutated_points >= lo) & (mutated_points <= hi)).all(axis=1)
+        sel = (cloud[0] >= lo[0]) & (cloud[0] <= hi[0])
+        for k in (1, 2):
+            sel &= (cloud[k] >= lo[k]) & (cloud[k] <= hi[k])
         filtered = mutated_points[sel]
         if filtered.shape[0] == 0:
             continue
@@ -456,14 +528,151 @@ def build_refine_candidates(
         ratio = filtered.shape[0] / (n_points_per_frame * len_frames)
         n_downsample = int(math.ceil(ratio * n_points_per_frame))
         n_downsample = min(max(n_downsample, 1), n_points_per_frame)
-        ds_idx = downsample_indices(n_points_per_frame, n_downsample)
+        # the 2-D Hausdorff of the reference ignores z
+        shifts.append((current_idx, filtered[:, :2], n_downsample))
+    return shifts
 
+
+@trace("centerline.refine_build")
+def build_refine_grid(
+    geometry: PyGeometry,
+    centerline: PyCenterline,
+    initial_cl_ref_idx: int,
+    angles: np.ndarray,
+    mutated_points: np.ndarray,
+    index_search_range: int,
+) -> Optional[RefineGrid]:
+    """Every (centerline shift x angle) candidate, made on ``config.device``
+    straight into the packed table inputs; None where no shift fits.
+
+    The host takes what is per frame or per (shift, frame), once: the lumen
+    stack ``[F, N, 3]``, its centroids and Newell normals, and each segment
+    map ``(A, b)`` as :func:`align_frame` makes it; they go up in one copy.
+    The device takes the points: the CCW-roll emulation of
+    ``sort_contour_points`` for every (frame, angle), the gather of each
+    downsample subset, the in-plane turn about the centroid and the segment
+    map, in the per-frame build's operation order (the map's three products
+    summed left to right, where the host's matrix product left the order to
+    BLAS).  A stack whose frames differ in point count takes the per-frame
+    build (span ``centerline.refine_build_fallback``)."""
+    shifts = _refine_shifts(
+        geometry, centerline, initial_cl_ref_idx, mutated_points, index_search_range
+    )
+    if not shifts:
+        return None
+    frames = geometry.frames
+    F, K, S = len(frames), len(angles), len(shifts)
+    N = frames[0].lumen.n_points
+    idx = [i for i, _, _ in shifts]
+    n = [F * d for _, _, d in shifts]
+    clouds = [c for _, c, _ in shifts]
+    n_max, m_max = max(n), max(len(c) for c in clouds)
+    sizes = sorted({d for _, _, d in shifts})
+    dev = config.device
+
+    # the host's part, written into one float64 buffer (pinned for a card):
+    # the lumens about their centroids (x, y) and z [3, F, N]; the angles'
+    # sin and cos; the centroids; rows x and y of each segment map [A | b],
+    # coefficient-major and shaped against [S, K, F, d, 2], the shifts
+    # grouped by downsample size; the clouds; the counts of valid candidate
+    # and cloud points; the frames' offsets and the downsample subsets
+    groups = [[si for si, (_, _, ds) in enumerate(shifts) if ds == d] for d in sizes]
+    shapes = [(3, F, N), (2, K, 1, 1), (2, F, 1), (4, S, 1, F, 1, 2), (S, m_max, 2), (2, S),
+              (F + sum(sizes),)]
+    buf = torch.empty(sum(math.prod(x) for x in shapes), dtype=torch.float64,
+                      pin_memory=dev.type == "cuda")
+    rel, trig, cxy, maps, q, counts, ints = _views(buf.numpy(), shapes)
+    q[...] = 0.0
+    for si, c in enumerate(clouds):
+        q[si, : len(c)] = c
+    counts[...] = n, [len(c) for c in clouds]
+
+    if any(f.lumen.n_points != N for f in frames):
+        with span("centerline.refine_build_fallback"):
+            p = to_device(_candidates_per_frame(geometry, centerline, shifts, angles, n_max))
+            _, _, _, _, q, counts, _ = _views(buf.to(dev), shapes)
+    else:
+        xyz = np.stack([f.lumen.xyz_view() for f in frames])  # [F, N, 3]
+        centroids = np.array([
+            f.lumen.centroid if f.lumen.centroid is not None else x.mean(axis=0)
+            for f, x in zip(frames, xyz)
+        ], dtype=np.float64)
+        for k in (0, 1):
+            np.subtract(xyz[:, :, k], centroids[:, k : k + 1], out=rel[k])
+        rel[2] = xyz[:, :, 2]
+        normals = _newell_of(rel[0], rel[1], xyz[:, :, 2] - centroids[:, 2:3])
+        A, b = _segment_maps(centroids, normals, centerline, idx)
+        order = sum(groups, [])
+        maps[:3] = A[order][:, :, :2].transpose(3, 0, 1, 2)[:, :, None, :, None, :]
+        maps[3] = b[order][:, :, :2][:, None, :, None, :]
+        trig[:, :, 0, 0] = np.sin(angles), np.cos(angles)
+        cxy[:, :, 0] = centroids[:, :2].T
+        ints[:F] = np.arange(F) * N
+        ints[F:] = np.concatenate([downsample_indices(N, d) for d in sizes])
+
+        rel, trig, cxy, maps, q, counts, ints = _views(buf.to(dev, non_blocking=True), shapes)
+        ints = ints.long()
+        offset, subsets = ints[:F, None], ints[F:].split(sizes)
+
+        # the roll of every (angle, frame): y' over the points reversed, so
+        # that argmax's first of equal maxima is max_by's last
+        rev = rel[:2].flip(-1)
+        yp = rev[0] * trig[0]
+        yp += rev[1] * trig[1]
+        rolls = (N - 1) - yp.argmax(-1)  # [K, F]
+        del rev, yp
+
+        p = torch.zeros((S * K, n_max, 2), dtype=torch.float64, device=dev)
+        slots = p.view(S, K, n_max, 2)
+        flat = rel.reshape(3, F * N)
+        sa, ca = trig[0], trig[1]
+        cx, cy = cxy[0], cxy[1]
+        g0 = 0
+        for d, sub, group in zip(sizes, subsets, groups):
+            # the shifts of one downsample size share the turned points [K, F, d]
+            x, y, z = flat[:, (rolls[:, :, None] + sub) % N + offset]
+            rx = x * ca - y * sa + cx
+            ry = x * sa + y * ca + cy
+            c = maps[:, g0 : g0 + len(group)]
+            v = rx[..., None] * c[0] + ry[..., None] * c[1] + z[..., None] * c[2] + c[3]
+            for i, si in enumerate(group):
+                slots[si, :, : F * d] = v[i].reshape(K, F * d, 2)
+            g0 += len(group)
+
+    pmask = torch.arange(n_max, device=dev) < counts[0, :, None].expand(S, K).reshape(S * K, 1)
+    qmask = torch.arange(q.shape[1], device=dev) < counts[1, :, None]
+    return RefineGrid(p, pmask, q, qmask, idx, n, clouds)
+
+
+def _views(flat, shapes) -> list:
+    """Consecutive views of the 1-D array or tensor ``flat``, one of each
+    shape."""
+    out, o = [], 0
+    for shape in shapes:
+        size = math.prod(shape)
+        out.append(flat[o : o + size].reshape(shape))
+        o += size
+    return out
+
+
+def _candidates_per_frame(geometry, centerline, shifts, angles, n_max) -> np.ndarray:
+    """The candidates ``[S*K, n_max, 2]`` (float64, zero-padded) frame by
+    frame on the host, each frame's roll taken modulo its own point count:
+    the build of stacks whose frames differ in point count."""
+    K = len(angles)
+    n_points_per_frame = geometry.frames[0].lumen.n_points
+    frame_xyz = [f.lumen.xyz_view() for f in geometry.frames]
+    frame_centroids = [
+        np.asarray(f.lumen.centroid if f.lumen.centroid is not None else fx.mean(axis=0))
+        for f, fx in zip(geometry.frames, frame_xyz)
+    ]
+    p = np.zeros((len(shifts), K, n_max, 2))
+    for si, (current_idx, _, n_downsample) in enumerate(shifts):
+        ds_idx = downsample_indices(n_points_per_frame, n_downsample)
         # per-frame candidate points for every angle: gather the CCW-roll
         # emulated downsample subset, rotate in-plane, apply the segment map
         per_frame_pts = []
-        for i in range(len_frames):
-            xyz = frame_xyz[i]
-            centroid = frame_centroids[i]
+        for i, (xyz, centroid) in enumerate(zip(frame_xyz, frame_centroids)):
             tr = align_frame(geometry.frames[i].lumen, centerline.points[current_idx + i])
             A, b = tr.as_affine()
             rolls = _ccw_roll_indices(xyz, centroid, angles)  # (K,)
@@ -478,51 +687,28 @@ def build_refine_candidates(
             rotated = np.stack([rx, ry, pts[..., 2]], axis=-1)
             per_frame_pts.append(rotated @ A.T + b)
         candidate = np.concatenate(per_frame_pts, axis=1)  # (K, F*n_ds, 3)
-        # the 2-D Hausdorff of the reference ignores z
-        shift_entries.append((current_idx, candidate[..., :2], filtered[:, :2]))
-    return shift_entries
+        p[si, :, : candidate.shape[1]] = candidate[..., :2]
+    return p.reshape(len(shifts) * K, n_max, 2)
 
 
-def pack_refine(shift_entries, K: int):
-    """The refine's table inputs, padded and masked in float64: candidates
-    ``p [S*K, n, 2]`` with ``pmask [S*K, n]``, one filtered cloud per shift
-    ``q [S, m, 2]`` with ``qmask [S, m]`` (n, m the widest)."""
-    S = len(shift_entries)
-    n_max = max(c.shape[1] for _, c, _ in shift_entries)
-    m_max = max(f.shape[0] for _, _, f in shift_entries)
-    p = np.zeros((S, K, n_max, 2))
-    pmask = np.zeros((S, K, n_max), dtype=bool)
-    q = np.zeros((S, m_max, 2))
-    qmask = np.zeros((S, m_max), dtype=bool)
-    for si, (_, cand, filt) in enumerate(shift_entries):
-        p[si, :, : cand.shape[1]] = cand
-        pmask[si, :, : cand.shape[1]] = True
-        q[si, : filt.shape[0]] = filt
-        qmask[si, : filt.shape[0]] = True
-    return p.reshape(S * K, n_max, 2), pmask.reshape(S * K, n_max), q, qmask
-
-
-def refine_table(packed, K: int, dtype) -> np.ndarray:
-    """The squared Hausdorff table ``[S*K]`` (float64 numpy) of the packed
-    refine inputs, evaluated on ``config.device`` in ``dtype``.
+def refine_table(grid: RefineGrid, K: int, dtype) -> np.ndarray:
+    """The squared Hausdorff table ``[S*K]`` (float64 numpy) of the refine
+    grid, evaluated on ``config.device`` in ``dtype``.
 
     Counts, under the table's dtype (``trace.counts()``), the table
     (``hausdorff_batch.tables.<dtype>``), its valid (candidate point, cloud
     point) pairs (``hausdorff_batch.valid_pairs.<dtype>``) and the bytes of
     its inputs and output (``hausdorff_batch.bytes.<dtype>``), from the
-    host masks before the upload."""
-    p, pmask, q, qmask = packed
+    grid's host-known sizes."""
+    p, pmask, q, qmask = grid[:4]
     name = str(dtype).rsplit(".", 1)[-1]
     elem = torch.empty((), dtype=dtype).element_size()
     count(f"hausdorff_batch.tables.{name}")
     count(f"hausdorff_batch.valid_pairs.{name}",
-          int((pmask.sum(1).reshape(-1, K) * qmask.sum(1)[:, None]).sum()))
+          K * sum(n * len(c) for n, c in zip(grid.n, grid.clouds)))
     count(f"hausdorff_batch.bytes.{name}",
-          (p.size + q.size + p.shape[0]) * elem + pmask.size + qmask.size)
-    table = hausdorff_sq_shared_ref(
-        to_device(p, dtype), to_device(pmask), to_device(q, dtype),
-        to_device(qmask), K,
-    )
+          (p.numel() + q.numel() + p.shape[0]) * elem + pmask.numel() + qmask.numel())
+    table = hausdorff_sq_shared_ref(p.to(dtype), pmask, q.to(dtype), qmask, K)
     return table.cpu().numpy().astype(np.float64)
 
 
@@ -574,7 +760,7 @@ def _refine_band(costs_sq: np.ndarray, dtype, scale2: float) -> float:
 refine_report: dict = {}
 
 
-def _certify_refine(costs_sq, dtype, packed, shift_entries, K, scale2):
+def _certify_refine(costs_sq, dtype, grid: RefineGrid, K, scale2):
     """Re-decide a flagged refine grid in float64.
 
     On the CPU in float64 every candidate is recomputed exactly on the host,
@@ -588,7 +774,7 @@ def _certify_refine(costs_sq, dtype, packed, shift_entries, K, scale2):
         redo = np.arange(costs_sq.size)
     else:
         table = costs_sq if dtype == torch.float64 else refine_table(
-            packed, K, torch.float64
+            grid, K, torch.float64
         )
         refine_report["f64_rerun"] = dtype != torch.float64
         redo = np.nonzero(table <= _refine_band(table, torch.float64, scale2))[0]
@@ -596,8 +782,9 @@ def _certify_refine(costs_sq, dtype, packed, shift_entries, K, scale2):
             redo = redo[:0]
         table = table.copy()
     for c in redo:
-        _, cand, filt = shift_entries[c // K]
-        table[c] = exact_candidate_sq(cand[c % K], filt)
+        si = c // K
+        cand = grid.p[c, : grid.n[si]].cpu().numpy()
+        table[c] = exact_candidate_sq(cand, grid.clouds[si])
     refine_report["host_exact"] = len(redo)
     return table
 
@@ -638,38 +825,32 @@ def refine_alignment_hausdorff(
 
     angles = refine_angles(initial_rotation, angle_search_range, angle_step)
     K = len(angles)
-    shift_entries = build_refine_candidates(
+    grid = build_refine_grid(
         geometry, centerline, initial_cl_ref_idx, angles, mutated_points,
         index_search_range,
     )
     refine_report.clear()
 
-    if shift_entries:
+    if grid is not None:
         dtype = config.compute_dtype
-        S = len(shift_entries)
-        with span("centerline.refine_pack"):
-            packed = pack_refine(shift_entries, K)
-        p_h, _, q_h, _ = packed
+        S = len(grid.idx)
         refine_report.update(
-            S=S, K=K, n=p_h.shape[1], m=q_h.shape[1], flagged=False,
+            S=S, K=K, n=grid.p.shape[1], m=grid.q.shape[1], flagged=False,
             host_exact=0, f64_rerun=False,
         )
         with span("centerline.refine_sweep"):
-            costs_sq = refine_table(packed, K, dtype)
+            costs_sq = refine_table(grid, K, dtype)
 
-        scale2 = max(
-            float((p_h * p_h).sum(-1).max()), float((q_h * q_h).sum(-1).max()),
-            1e-30,
-        )
+        scale2 = float(torch.maximum(
+            (grid.p * grid.p).sum(-1).max(), (grid.q * grid.q).sum(-1).max()
+        ).clamp_min(1e-30))
         if (costs_sq <= _refine_band(costs_sq, dtype, scale2)).sum() > 1:
             stats["flagged"] += 1
             refine_report["flagged"] = True
             if certify_enabled():
                 stats["repaired"] += 1
                 with span("centerline.refine_repair"):
-                    exact = _certify_refine(
-                        costs_sq, dtype, packed, shift_entries, K, scale2
-                    )
+                    exact = _certify_refine(costs_sq, dtype, grid, K, scale2)
                 if np.argmin(exact) != np.argmin(costs_sq):
                     stats["changed"] += 1
                 costs_sq = exact
@@ -678,7 +859,7 @@ def refine_alignment_hausdorff(
 
         # identical first-wins scan order to the sequential loop: strict <
         # on the square roots (two squares can share one root)
-        for si, (current_idx, _, _) in enumerate(shift_entries):
+        for si, current_idx in enumerate(grid.idx):
             for k in range(K):
                 if costs[si, k] < min_hausdorff:
                     min_hausdorff = float(costs[si, k])

@@ -263,3 +263,26 @@ def test_tie_fixture_in_float32_takes_the_tiers():
     assert t_ca.refine_report["f64_rerun"]
     assert t_ca.refine_report["host_exact"] == 2
     np.testing.assert_allclose(_coords(got), _coords(want), rtol=0.0, atol=1e-9)
+
+
+def test_segment_maps_equal_the_jax_packages_bit_for_bit():
+    """The refine's segment maps (batched Newell normals, then
+    ``_segment_maps``) and ``align_frame`` equal the JAX package's
+    ``align_frame`` affine bit for bit, on every frame of the fixture
+    against 25 spread centerline starts, the tilted ones included."""
+    geom = _geometry(mt)
+    cl = t_ca.preprocess_centerline(mt.read_centerline_vtp(VTP), geom)
+    j_geom = _geometry(mj)
+    j_cl = j_ca.preprocess_centerline(mj.read_centerline_vtp(VTP), j_geom)
+    F = len(geom.frames)
+    xyz = np.stack([f.lumen.xyz_view() for f in geom.frames])
+    centroids = np.array([f.lumen.centroid for f in geom.frames])
+    normals = t_ca._newell_of(*(xyz[:, :, k] - centroids[:, k : k + 1] for k in range(3)))
+    starts = list(range(0, len(cl.points) - F, max(1, (len(cl.points) - F) // 25)))
+    A, b = t_ca._segment_maps(centroids, normals, cl, starts)
+    for s, start in enumerate(starts):
+        for i, (frame, j_frame) in enumerate(zip(geom.frames, j_geom.frames)):
+            want = j_ca.align_frame(j_frame.lumen, j_cl.points[start + i]).as_affine()
+            single = t_ca.align_frame(frame.lumen, cl.points[start + i]).as_affine()
+            for got, one, w in zip((A[s, i], b[s, i]), single, want):
+                assert np.array_equal(got, w) and np.array_equal(one, w), (s, i)

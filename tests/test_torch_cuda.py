@@ -580,6 +580,41 @@ def test_align_combined_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(c32, c_cpu, rtol=0.0, atol=1e-4)
 
 
+def test_refine_grid_on_cuda_equals_the_cpu_build(cuda):
+    """The refine's candidate grid made on the card equals the CPU build of
+    the same case bit for bit (elementwise float64 operations, each
+    rounded once on either device), and both refines choose one winner."""
+    from multimodars_torch.pipelines import centerline_align as ca
+
+    vtp, lumen, ref, landmarks, cloud = _centerline_case()
+    seen = []
+    inner = ca.build_refine_grid
+
+    def spy(*args):
+        grid = inner(*args)
+        seen.append((args, grid))
+        return grid
+
+    ca.build_refine_grid = spy
+    try:
+        winners = []
+        for device in ("cpu", cuda):
+            geom = mt.numpy_to_geometry(lumen, reference_arr=ref)
+            with mt.config.use(device=device, dtype=torch.float64):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    mt.align_combined(mt.read_centerline_vtp(vtp), geom, *landmarks, cloud)
+            winners.append(ca.refine_report["winner"])
+    finally:
+        ca.build_refine_grid = inner
+    (_, cpu), (_, card) = seen
+    assert card.p.device.type == "cuda" and cpu.p.device.type == "cpu"
+    for got, want in zip(card[:4], cpu[:4]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+    assert (card.idx, card.n) == (cpu.idx, cpu.n)
+    assert winners[0] == winners[1]
+
+
 # ---------------------------------------------------------------------------
 # the CCTA toolkit's kernels: radius count, nearest pick, morph sweep
 # ---------------------------------------------------------------------------
