@@ -43,15 +43,6 @@ def downsample_indices(m: int, n: int) -> np.ndarray:
     return (np.arange(n) * step).astype(np.int64)
 
 
-def _xyz(points: Sequence[PyContourPoint]) -> np.ndarray:
-    out = np.empty((len(points), 3), dtype=np.float64)
-    for i, p in enumerate(points):
-        out[i, 0] = p.x
-        out[i, 1] = p.y
-        out[i, 2] = p.z
-    return out
-
-
 def polygon_area_3d(xyz: np.ndarray) -> float:
     """Area of a closed 3-D polygon: half the norm of the summed cross
     products over consecutive edges (contour.rs:345-362)."""

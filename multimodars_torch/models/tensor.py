@@ -13,7 +13,8 @@ keeps one rectangular array set per contour kind for a whole pullback —
 
 Rectangularity is guaranteed by the integrity gate's per-kind point-count
 check (integrity_check.rs:8-32 / io/build.check_geometry_integrity); kinds
-missing from some frames carry a per-frame ``present`` mask.
+missing from some frames carry a per-frame ``present`` mask.  Stacks made
+from frames come from :func:`geometry_to_tensor` alone, under its rule.
 """
 
 from __future__ import annotations
@@ -56,10 +57,6 @@ def row_blocks(n_rows: int, row_bytes: int):
     temporaries would each take fresh pages from the system."""
     step = max(2, ROW_BLOCK_BYTES // max(row_bytes, 1))
     return [slice(r, r + step) for r in range(0, n_rows, step)]
-
-
-def _opt_to_nan(v) -> float:
-    return np.nan if v is None else float(v)
 
 
 def _nan_to_opt(v: float):
@@ -623,93 +620,143 @@ def _contour_view(tg: TensorGeometry, kind: str, i: int, fid: int, orig: int) ->
     return c
 
 
-def geometry_to_tensor(
-    geometry: PyGeometry, kinds=None, dtype=None
-) -> TensorGeometry:
-    """Pack a (rectangular, integrity-checked) PyGeometry into the array
-    spine.  Raises ValueError if any kind's point count varies across the
-    frames that carry it — callers fall back to the object pipeline then.
+def geometry_to_tensor(geometry: PyGeometry, kinds=None) -> TensorGeometry:
+    """The geometry's frames, in their order, as fresh per-kind stacks that
+    own their data: the one packer of frames into a TensorGeometry.
 
-    ``kinds`` (round-1 compat): restrict packing to these contour kinds
-    (Lumen is always included).  ``dtype`` (round-1 compat): cast the
-    coordinate arrays; the spine's own math is f64, so anything else is
-    for export use only."""
+    The rule: a geometry packs exactly when ``to_geometry()`` of the result
+    gives back every packed field: the coordinates, point index arrays and
+    aortic flags; the contour and frame centroids and the thicknesses, None
+    where None (so no NaN x or NaN thickness); the kinds and each frame's
+    extras order; each contour's kind, original frame and id; the frame ids;
+    and the one reference point.  Otherwise it raises ValueError naming the
+    field.  ``kinds``: the kinds to pack, None for all; the lumen is always
+    packed.  What is left out is not read, but must come after every packed
+    extra in each frame that holds it, so that a caller appending it again
+    last gives the frame's order back."""
     frames = geometry.frames
     F = len(frames)
-    requested = None if kinds is None else set(kinds) | {"Lumen"}
-    kinds: List[str] = ["Lumen"]
-    for f in frames:
-        for k in f.extras.keys():
-            if k not in kinds and (requested is None or k in requested):
-                kinds.append(k)
+    if F == 0:
+        raise ValueError("cannot pack: no frames")
+    lumens = [f.lumen for f in frames]
+    if None in lumens:
+        raise ValueError("cannot pack: a frame without a lumen")
+    # kinds in first-appearance order; to_geometry writes every frame's
+    # extras in that order, so each frame must already hold them so
+    layouts = list({tuple(f.extras): None for f in frames})
+    if kinds is not None:
+        wanted = set(kinds)
+        kept = [tuple(k for k in layout if k in wanted) for layout in layouts]
+        for layout, packed in zip(layouts, kept):
+            if layout[: len(packed)] != packed:
+                raise ValueError(f"cannot pack: a kind left out before a packed one ({list(layout)})")
+        layouts = kept
+    order = ["Lumen"]
+    for layout in layouts:
+        order.extend(k for k in layout if k not in order)
+    slot = {k: i for i, k in enumerate(order)}
+    for layout in layouts:
+        if "Lumen" in layout or [slot[k] for k in layout] != sorted(slot[k] for k in layout):
+            raise ValueError(f"cannot pack: extras in another order ({list(layout)})")
+    refs = [i for i, f in enumerate(frames) if f.reference_point is not None]
+    if len(refs) > 1:
+        raise ValueError(f"cannot pack: reference points on {len(refs)} frames")
+    try:
+        centroids = np.array([f.centroid for f in frames], dtype=np.float64)
+    except (TypeError, ValueError):
+        centroids = None
+    if centroids is None or centroids.shape != (F, 3):
+        raise ValueError("cannot pack: a frame centroid not of three numbers")
 
-    coords: Dict[str, np.ndarray] = {}
-    present: Dict[str, np.ndarray] = {}
-    pt_frame: Dict[str, np.ndarray] = {}
-    pt_index: Dict[str, np.ndarray] = {}
-    pt_aortic: Dict[str, np.ndarray] = {}
-    con_centroid: Dict[str, np.ndarray] = {}
-    aortic_th: Dict[str, np.ndarray] = {}
-    pulm_th: Dict[str, np.ndarray] = {}
+    ids = [f.id for f in frames]
+    lumen_orig = [c.original_frame for c in lumens]
+    fields = {name: {} for name in (
+        "coords", "pt_frame", "pt_index", "pt_aortic", "con_centroid",
+        "aortic_th", "pulm_th", "present",
+    )}
+    for k in order:
+        cons = lumens if k == "Lumen" else [f.extras.get(k) for f in frames]
+        rows = [i for i, c in enumerate(cons) if c is not None]
+        full = len(rows) == F
+        if not full:
+            cons = [cons[i] for i in rows]
+        packed = _pack_kind(
+            k, cons, ids if full else [ids[i] for i in rows],
+            lumen_orig if full else [lumen_orig[i] for i in rows],
+        )
+        present = np.ones(F, dtype=bool)
+        if not full:  # a kind some frames lack: its rows at their frames
+            present[:] = False
+            present[rows] = True
+            fill = (0.0, 0, 0, False, np.nan, np.nan, np.nan)
+            for j, a in enumerate(packed):
+                spread = np.full((F, *a.shape[1:]), fill[j], dtype=a.dtype)
+                spread[rows] = a
+                packed[j] = spread
+        for name, a in zip(fields, (*packed, present)):
+            fields[name][k] = a
 
-    for k in kinds:
-        cons = [
-            (f.lumen if k == "Lumen" else f.extras.get(k)) for f in frames
-        ]
-        counts = {c.n_points for c in cons if c is not None}
-        if len(counts) != 1:
-            raise ValueError(f"ragged point counts for kind {k}: {sorted(counts)}")
-        P = counts.pop()
-        coords[k] = np.zeros((F, P, 3), dtype=np.float64 if dtype is None else dtype)
-        present[k] = np.zeros(F, dtype=bool)
-        pt_frame[k] = np.zeros((F, P), dtype=np.int64)
-        pt_index[k] = np.zeros((F, P), dtype=np.int64)
-        pt_aortic[k] = np.zeros((F, P), dtype=bool)
-        con_centroid[k] = np.full((F, 3), np.nan)
-        aortic_th[k] = np.full(F, np.nan)
-        pulm_th[k] = np.full(F, np.nan)
-        for i, c in enumerate(cons):
-            if c is None:
-                continue
-            present[k][i] = True
-            coords[k][i] = c._coords
-            pt_frame[k][i] = c._frame_idx
-            pt_index[k][i] = c._point_idx
-            pt_aortic[k][i] = c._aortic
-            if c.centroid is not None:
-                con_centroid[k][i] = c.centroid
-            aortic_th[k][i] = _opt_to_nan(c.aortic_thickness)
-            pulm_th[k][i] = _opt_to_nan(c.pulmonary_thickness)
-
-    ref_pos = None
-    ref_point = None
-    for i, f in enumerate(frames):
-        if f.reference_point is not None:
-            ref_pos = i
-            ref_point = f.reference_point.copy()
-            break
-
+    ref_pos = refs[0] if refs else None
     return TensorGeometry(
         label=geometry.label,
-        kinds=kinds,
-        coords=coords,
-        present=present,
-        pt_frame=pt_frame,
-        pt_index=pt_index,
-        pt_aortic=pt_aortic,
-        con_centroid=con_centroid,
-        aortic_th=aortic_th,
-        pulm_th=pulm_th,
-        ids=np.array([f.id for f in frames], dtype=np.int64),
-        orig_frame=np.array(
-            [f.lumen.original_frame for f in frames], dtype=np.int64
-        ),
-        centroids=np.array([f.centroid for f in frames], dtype=np.float64)
-        if frames
-        else np.zeros((0, 3)),
+        kinds=order,
+        **fields,
+        ids=np.array(ids, dtype=np.int64),
+        orig_frame=np.array(lumen_orig, dtype=np.int64),
+        centroids=centroids,
         ref_pos=ref_pos,
-        ref_point=ref_point,
+        ref_point=None if ref_pos is None else frames[ref_pos].reference_point.copy(),
     )
+
+
+def _pack_kind(k: str, cons: List[PyContour], ids: list, origs: list) -> List[np.ndarray]:
+    """Fresh rows of the contours of kind ``k``, in TensorGeometry's field
+    order, under :func:`geometry_to_tensor`'s rule."""
+    R = len(cons)
+    xyz = [c._coords for c in cons]
+    P = xyz[0].shape[0]
+    if {a.shape for a in xyz} != {(P, 3)}:
+        raise ValueError(f"cannot pack {k}: point counts vary")
+    per_point = [[c._frame_idx for c in cons], [c._point_idx for c in cons],
+                 [c._aortic for c in cons]]
+    if any(set(map(len, arrays)) != {P} for arrays in per_point):
+        raise ValueError(f"cannot pack {k}: index or flag arrays of another length")
+    if {c.kind for c in cons} != {k}:
+        raise ValueError(f"cannot pack {k}: a contour of another kind")
+    if [c.original_frame for c in cons] != origs:
+        raise ValueError(f"cannot pack {k}: an original frame not its lumen's")
+    if [c.id for c in cons] != ids:
+        raise ValueError(f"cannot pack {k}: a contour id not its frame's")
+    cen = [c.centroid for c in cons]
+    ath = [c.aortic_thickness for c in cons]
+    pth = [c.pulmonary_thickness for c in cons]
+    try:
+        packed = [
+            _concatenate(xyz, (R, P, 3), np.float64),
+            *(_concatenate(a, (R, P), t) for a, t in zip(per_point, (np.int64, np.int64, bool))),
+            np.array([(np.nan,) * 3 if c is None else c for c in cen], dtype=np.float64),
+            np.array([np.nan if v is None else v for v in ath], dtype=np.float64),
+            np.array([np.nan if v is None else v for v in pth], dtype=np.float64),
+        ]
+        nones = [v.count(None) for v in (cen, ath, pth)]
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"cannot pack {k}: {e}") from None
+    if packed[4].shape != (R, 3):
+        raise ValueError(f"cannot pack {k}: a centroid not of three numbers")
+    for name, a, n in zip(("centroid", "aortic thickness", "pulmonary thickness"),
+                          (packed[4][:, 0], packed[5], packed[6]), nones):
+        if np.isnan(a).sum() != n:
+            raise ValueError(f"cannot pack {k}: a NaN {name}, which the stacks hold as None")
+    return packed
+
+
+def _concatenate(arrays: List[np.ndarray], shape, dtype) -> np.ndarray:
+    """The rows stacked into a fresh array of ``shape`` that owns its data,
+    so that the views into it that to_geometry makes share it as their 3-D
+    base (models.geometry.shared_contour_blocks)."""
+    out = np.empty(shape, dtype=dtype)
+    np.concatenate(arrays, out=out.reshape(-1, *shape[2:]))
+    return out
 
 
 def tensor_to_geometry(tensor: TensorGeometry, template=None) -> PyGeometry:

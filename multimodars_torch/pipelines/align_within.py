@@ -23,6 +23,7 @@ optima.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import List, Optional, Tuple
 
@@ -108,24 +109,52 @@ class _TensorFallback(Exception):
 
 
 def _tensorize(geometry: PyGeometry) -> TensorGeometry:
+    """The geometry's stacks, where the tensor finish's own preconditions
+    hold: frame ids 0..F-1 (its frame positions) and the funnel's."""
     try:
         tg = geometry_to_tensor(geometry)
-    except ValueError as e:
-        raise _TensorFallback(str(e))
-    if not tg.present["Lumen"].all():
-        raise _TensorFallback("lumen missing in some frames")
-    # the spine folds contour ids into the frame id and uses id values as
-    # frame positions (like the funnel-built object model); anything else
-    # rides the object pipeline
-    F = tg.n_frames
-    if not np.array_equal(tg.ids, np.arange(F, dtype=np.int64)):
+    except ValueError:
+        # the JAX package packs these as read here; its object path returns otherwise (ROADMAP C.8)
+        try:
+            tg = geometry_to_tensor(_as_packed_before(geometry))
+        except ValueError as e:
+            raise _TensorFallback(str(e))
+    if not np.array_equal(tg.ids, np.arange(tg.n_frames, dtype=np.int64)):
         raise _TensorFallback("frame ids are not 0..F-1")
-    for f in geometry.frames:
-        for c in f.all_contours():
-            if c.id != f.id:
-                raise _TensorFallback("contour id differs from frame id")
     _check_funnel_invariants(tg)
     return tg
+
+
+def _as_packed_before(geometry: PyGeometry) -> PyGeometry:
+    """Shallow copies of the frames as the within search packed them before
+    the packer's rule: extras in the kinds' order of first appearance (none
+    keyed "Lumen"), the first reference point alone, NaN centroid x and NaN
+    thicknesses as None, each contour's kind its key, original frames the
+    lumen's."""
+    order = list(dict.fromkeys(
+        k for f in geometry.frames for k in f.extras if k != "Lumen"))
+    first = next((i for i, f in enumerate(geometry.frames) if f.reference_point is not None), None)
+    frames = []
+    for i, f in enumerate(geometry.frames):
+        nf = copy.copy(f)
+        nf.reference_point = f.reference_point if i == first else None
+        if f.lumen is not None:
+            orig = f.lumen.original_frame
+            nf.lumen = _as_read(f.lumen, "Lumen", orig)
+            nf.extras = {k: _as_read(f.extras[k], k, orig) for k in order if k in f.extras}
+        frames.append(nf)
+    return PyGeometry(frames, geometry.label)
+
+
+def _as_read(contour: PyContour, kind: str, original_frame: int) -> PyContour:
+    c = copy.copy(contour)
+    c.kind, c.original_frame = kind, original_frame
+    if c.centroid is not None and math.isnan(c.centroid[0]):
+        c.centroid = None
+    c.aortic_thickness, c.pulmonary_thickness = (
+        None if v is None or math.isnan(v) else v
+        for v in (c.aortic_thickness, c.pulmonary_thickness))
+    return c
 
 
 def _check_funnel_invariants(tg: TensorGeometry) -> None:

@@ -30,8 +30,10 @@ import torch
 from ..config import config
 from ..models.centerline import PyCenterline, PyCenterlinePoint, clpoints_from_lists
 from ..models.contour import PyContour, downsample_indices
+from ..models.frame import PyFrame
 from ..models.geometry import PyGeometry, PyGeometryPair
 from ..models.point import PyContourPoint
+from ..models.tensor import geometry_to_tensor, point_means
 from ..ops.argmin_repair import certify_enabled, stats
 from ..ops.hausdorff_batch import hausdorff_sq_shared_ref
 from ..ops.rotation_search import _eps_eff
@@ -553,8 +555,8 @@ def build_refine_grid(
     downsample subset, the in-plane turn about the centroid and the segment
     map, in the per-frame build's operation order (the map's three products
     summed left to right, where the host's matrix product left the order to
-    BLAS).  A stack whose frames differ in point count takes the per-frame
-    build (span ``centerline.refine_build_fallback``)."""
+    BLAS).  Lumens that ``models.tensor.geometry_to_tensor`` refuses take
+    the per-frame build (span ``centerline.refine_build_fallback``)."""
     shifts = _refine_shifts(
         geometry, centerline, initial_cl_ref_idx, mutated_points, index_search_range
     )
@@ -587,16 +589,23 @@ def build_refine_grid(
         q[si, : len(c)] = c
     counts[...] = n, [len(c) for c in clouds]
 
-    if any(f.lumen.n_points != N for f in frames):
+    try:
+        # the lumens alone, and no reference point: numpy_to_geometry puts
+        # one on every frame, which no stack holds and the refine never reads
+        lumens = geometry_to_tensor(
+            PyGeometry([_unreferenced(f) for f in frames], geometry.label), kinds=("Lumen",))
+    except ValueError:
+        lumens = None
+    if lumens is None:
         with span("centerline.refine_build_fallback"):
             p = to_device(_candidates_per_frame(geometry, centerline, shifts, angles, n_max))
             _, _, _, _, q, counts, _ = _views(buf.to(dev), shapes)
     else:
-        xyz = np.stack([f.lumen.xyz_view() for f in frames])  # [F, N, 3]
-        centroids = np.array([
-            f.lumen.centroid if f.lumen.centroid is not None else x.mean(axis=0)
-            for f, x in zip(frames, xyz)
-        ], dtype=np.float64)
+        xyz = lumens.coords["Lumen"]  # [F, N, 3]
+        centroids = lumens.con_centroid["Lumen"]
+        unset = np.isnan(centroids[:, 0])  # None: the lumen's own mean
+        if unset.any():
+            centroids[unset] = point_means(xyz[unset])
         for k in (0, 1):
             np.subtract(xyz[:, :, k], centroids[:, k : k + 1], out=rel[k])
         rel[2] = xyz[:, :, 2]
@@ -644,6 +653,14 @@ def build_refine_grid(
     return RefineGrid(p, pmask, q, qmask, idx, n, clouds)
 
 
+def _unreferenced(frame: PyFrame) -> PyFrame:
+    """``frame`` without its reference point, sharing everything else."""
+    out = PyFrame.__new__(PyFrame)
+    out.id, out.centroid, out.lumen, out.extras = frame.id, frame.centroid, frame.lumen, frame.extras
+    out.reference_point = None
+    return out
+
+
 def _views(flat, shapes) -> list:
     """Consecutive views of the 1-D array or tensor ``flat``, one of each
     shape."""
@@ -689,6 +706,17 @@ def _candidates_per_frame(geometry, centerline, shifts, angles, n_max) -> np.nda
         candidate = np.concatenate(per_frame_pts, axis=1)  # (K, F*n_ds, 3)
         p[si, :, : candidate.shape[1]] = candidate[..., :2]
     return p.reshape(len(shifts) * K, n_max, 2)
+
+
+def _refine_winner(costs: np.ndarray) -> Optional[Tuple[int, int]]:
+    """(shift slot, angle slot) of the first least of the ``[S, K]`` roots
+    in row-major order (two squares can share one root), NaN read as +inf;
+    None where none is finite: the reference's scan, strict ``<`` from +inf."""
+    flat = np.where(np.isnan(costs), np.inf, costs).ravel()
+    w = int(np.argmin(flat))
+    if not flat[w] < np.inf:
+        return None
+    return divmod(w, costs.shape[1])
 
 
 def refine_table(grid: RefineGrid, K: int, dtype) -> np.ndarray:
@@ -856,16 +884,13 @@ def refine_alignment_hausdorff(
                 costs_sq = exact
 
         costs = np.sqrt(costs_sq).reshape(S, K)
-
-        # identical first-wins scan order to the sequential loop: strict <
-        # on the square roots (two squares can share one root)
-        for si, current_idx in enumerate(grid.idx):
-            for k in range(K):
-                if costs[si, k] < min_hausdorff:
-                    min_hausdorff = float(costs[si, k])
-                    best_angle = float(angles[k])
-                    best_cl_ref_idx = current_idx
-                    refine_report["winner"] = (si, k)
+        winner = _refine_winner(costs)
+        if winner is not None:
+            si, k = winner
+            min_hausdorff = float(costs[si, k])
+            best_angle = float(angles[k])
+            best_cl_ref_idx = grid.idx[si]
+            refine_report["winner"] = winner
 
     if verbose:
         print(

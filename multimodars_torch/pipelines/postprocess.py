@@ -6,12 +6,13 @@ including its quirks (signed sample-rate comparison, original-pair indexing
 for the final z re-translation).
 
 Two forms of one algorithm.  :func:`postprocess_geom_pair` packs each
-geometry once into per-kind ``[F, P, 3]`` stacks (:class:`TensorGeometry`),
-runs every step as an array pass over them and materialises the pair once,
-its contours viewing fresh blocks.  The object functions below it
-(:func:`resample_by_diff` ... :func:`postprocess_geom_pair_objects`) take
-the pairs the stacks cannot hold exactly (ragged kinds, several reference
-points, a wall too short for its stack), under the span
+geometry once into per-kind ``[F, P, 3]`` stacks (:class:`TensorGeometry`,
+``models.tensor.geometry_to_tensor``), runs every step as an array pass over
+them and materialises the pair once, its contours viewing fresh blocks.  The
+object functions below it (:func:`resample_by_diff` ...
+:func:`postprocess_geom_pair_objects`) take the pairs the stacks cannot hold
+(the packer's rule refuses a geometry, blended and copied frames would list
+extras in two orders, a wall does not fit its stack), under the span
 ``postprocess.object_path``.  Both run the same float64 operations in the
 same order, so their results are equal bit for bit
 (``tests/test_torch_postprocess_stacks.py``).
@@ -27,8 +28,7 @@ import numpy as np
 from ..models.contour import PyContour
 from ..models.frame import PyFrame
 from ..models.geometry import PyGeometry, PyGeometryPair
-from ..models.point import PyContourPoint
-from ..models.tensor import TensorGeometry, row_blocks
+from ..models.tensor import TensorGeometry, geometry_to_tensor, row_blocks
 from ..utils.trace import span
 from . import wall
 
@@ -536,15 +536,21 @@ def _trim_plans(plan_a: _Plan, plan_b: _Plan) -> Tuple[_Plan, _Plan]:
 
 def _run_plan(plan: _Plan, rebuilt: Optional[str]) -> Optional[TensorGeometry]:
     """The plan's rows as fresh stacks: frames copied, rows blended, z
-    written.  None where the frames do not pack."""
-    if plan.blend is None:
-        stack = _pack([plan.frames[i] for i in plan.lo], plan.label, rebuilt)
-        if stack is None:
-            return None
-    else:
-        source = _pack(plan.frames, plan.label, rebuilt)
-        if source is None:
-            return None
+    written; None where the frames do not pack.  The kind ``rebuilt``, which
+    the caller replaces and appends again last, is left out where it is last."""
+    frames = plan.frames if plan.blend is not None else [plan.frames[i] for i in plan.lo]
+    kinds = None
+    if rebuilt:  # the packer checks that it trails in every frame
+        order = list(dict.fromkeys(k for f in frames for k in f.extras))
+        if order[-1:] == [rebuilt]:
+            kinds = order[:-1]
+    try:
+        stack = source = geometry_to_tensor(PyGeometry(frames, plan.label), kinds)
+    except ValueError:
+        return None
+    if any(source.n_points(k) == 0 for k in source.kinds):
+        return None  # the object path's translate centres no points at the origin, not None
+    if plan.blend is not None:
         rows = np.flatnonzero(plan.blend)
         if rows.size and source.kinds[1:] != [k for k in EXTRA_KINDS if k in source.kinds]:
             # a blended frame's extras come in EXTRA_KINDS' order, a copied
@@ -601,112 +607,6 @@ def _set_frame_z(stack: TensorGeometry, rows, z: np.ndarray, lumen_only: bool) -
         hit = np.flatnonzero(np.arange(stack.n_frames)[rows] == stack.ref_pos)
         if hit.size:
             stack.ref_point.z = float(z[hit[0]])
-
-
-def _pack(
-    frames: List[PyFrame], label: str, rebuilt: Optional[str] = None
-) -> Optional[TensorGeometry]:
-    """The frames, in this order, as fresh per-kind stacks, or None where the
-    stacks would not give the frames back exactly: no frames, a kind whose
-    point count varies or is 0, a contour whose kind or original frame is
-    not its key's or its lumen's, extras in an order the stack's kinds do
-    not keep, more than one reference point, or a NaN where the stack
-    writes None (a centroid's x, a thickness).  The kind ``rebuilt``, which
-    the caller replaces in every frame, is left out where it is the last."""
-    F = len(frames)
-    if F == 0:
-        return None
-    refs = [i for i, f in enumerate(frames) if f.reference_point is not None]
-    if len(refs) > 1:
-        return None
-    # kinds in first-appearance order; to_geometry writes every frame's
-    # extras in that order, so each frame must already hold them so
-    kinds = ["Lumen"]
-    layouts = {tuple(f.extras): None for f in frames}
-    for layout in layouts:
-        kinds.extend(k for k in layout if k not in kinds)
-    slot = {k: i for i, k in enumerate(kinds)}
-    for layout in layouts:
-        order = [slot[k] for k in layout]
-        if "Lumen" in layout or order != sorted(order):
-            return None
-    if kinds[-1] == rebuilt:  # replaced wholesale, and appended again last
-        kinds.pop()
-
-    lumen_orig = [f.lumen.original_frame for f in frames]
-    fields = {name: {} for name in (
-        "coords", "pt_frame", "pt_index", "pt_aortic", "con_centroid",
-        "aortic_th", "pulm_th", "present",
-    )}
-    for k in kinds:
-        cons = [f.lumen for f in frames] if k == "Lumen" else [f.extras.get(k) for f in frames]
-        rows = [i for i, c in enumerate(cons) if c is not None]
-        full = len(rows) == F
-        if not full:
-            cons = [cons[i] for i in rows]
-        xyz = [c._coords for c in cons]
-        cen = [c.centroid for c in cons]
-        ath = [c.aortic_thickness for c in cons]
-        pth = [c.pulmonary_thickness for c in cons]
-        P = xyz[0].shape[0]
-        if (
-            P == 0
-            or {a.shape for a in xyz} != {(P, 3)}
-            or {c.kind for c in cons} != {k}
-            or [c.original_frame for c in cons] != (
-                lumen_orig if full else [lumen_orig[i] for i in rows])
-        ):
-            return None
-        R = len(rows)
-        try:
-            packed = [
-                _concatenate(xyz, (R, P, 3), np.float64),
-                _concatenate([c._frame_idx for c in cons], (R, P), np.int64),
-                _concatenate([c._point_idx for c in cons], (R, P), np.int64),
-                _concatenate([c._aortic for c in cons], (R, P), bool),
-                np.array([(np.nan,) * 3 if c is None else c for c in cen], dtype=np.float64),
-                np.array([np.nan if v is None else v for v in ath], dtype=np.float64),
-                np.array([np.nan if v is None else v for v in pth], dtype=np.float64),
-            ]
-        except ValueError:  # index arrays of another length, a centroid not of 3
-            return None
-        if packed[4].shape != (R, 3) or any(
-            np.isnan(a).sum() != v.count(None)
-            for a, v in ((packed[4][:, 0], cen), (packed[5], ath), (packed[6], pth))
-        ):
-            return None  # a NaN where the stack would write None
-        present = np.ones(F, dtype=bool)
-        if not full:  # a kind some frames lack: its rows at their frames
-            present[:] = False
-            present[rows] = True
-            fill = (0.0, 0, 0, False, np.nan, np.nan, np.nan)
-            for j, a in enumerate(packed):
-                spread = np.full((F, *a.shape[1:]), fill[j], dtype=a.dtype)
-                spread[rows] = a
-                packed[j] = spread
-        for name, a in zip(fields, (*packed, present)):
-            fields[name][k] = a
-
-    ref_pos = refs[0] if refs else None
-    return TensorGeometry(
-        label=label,
-        kinds=kinds,
-        **fields,
-        ids=np.array([f.id for f in frames], dtype=np.int64),
-        orig_frame=np.array(lumen_orig, dtype=np.int64),
-        centroids=np.array([f.centroid for f in frames], dtype=np.float64),
-        ref_pos=ref_pos,
-        ref_point=None if ref_pos is None else frames[ref_pos].reference_point.copy(),
-    )
-
-
-def _concatenate(arrays: List[np.ndarray], shape, dtype) -> np.ndarray:
-    """The rows stacked into a fresh array of ``shape`` that owns its data,
-    so that the views into it that to_geometry makes share it as their 3-D
-    base (models.geometry.shared_contour_blocks)."""
-    out = np.empty(shape, dtype=dtype)
-    np.concatenate(arrays, out=out.reshape(-1, *shape[2:]))
-    return out
 
 
 def _adjust_walls_stacks(stack_a: TensorGeometry, stack_b: TensorGeometry) -> bool:

@@ -213,12 +213,6 @@ def _aortic_walls_rows(
     return True
 
 
-def _create_wall_contour_aortic_only(contour: PyContour) -> PyContour:
-    if contour.aortic_thickness is None:
-        return offset_contour(contour, 1.0, None)
-    return create_aortic_wall(contour)
-
-
 def _offset_from(
     xyz: np.ndarray, centroids: np.ndarray, distance: float, keep=None, out=None
 ) -> np.ndarray:

@@ -189,6 +189,51 @@ def test_refine_angles_accumulate_like_the_reference():
     assert got.tolist() == want
 
 
+def _scan_winner(costs):
+    """The reference's sequential scan: strict ``<`` from +inf, shift slot
+    outer, angle slot inner; None where no root beats +inf."""
+    best, winner = math.inf, None
+    for si in range(costs.shape[0]):
+        for k in range(costs.shape[1]):
+            if costs[si, k] < best:
+                best, winner = float(costs[si, k]), (si, k)
+    return winner
+
+
+def _winner_cases():
+    rng = np.random.default_rng(41)
+    seeded = np.sqrt(rng.uniform(0.5, 9.0, (5, 31)))
+    shared = np.array([1.0, 1.0 + 2.0**-52])  # two squares of one root
+    assert np.sqrt(shared[0]) == np.sqrt(shared[1])
+    tie = np.full((3, 4), 4.0)
+    tie[2, 1], tie[0, 3] = shared
+    inf_rows = seeded.copy()
+    inf_rows[:2] = np.inf
+    nans = seeded.copy()
+    nans[0, :7] = np.nan
+    nans[3, 2] = np.nan
+    nan_first = np.full((2, 3), np.inf)
+    nan_first[0, 0], nan_first[1, 2] = np.nan, 7.0
+    return {
+        "seeded": seeded,
+        "equal roots from different squares": np.sqrt(tie),
+        "inf rows": inf_rows,
+        "NaN entries": nans,
+        "NaN before the only finite root": nan_first,
+        "all inf": np.full((5, 31), np.inf),
+        "all NaN": np.full((2, 3), np.nan),
+        "one candidate": np.array([[2.5]]),
+    }
+
+
+@pytest.mark.parametrize("case", list(_winner_cases()))
+def test_refine_winner_equals_the_sequential_scan(case):
+    costs = _winner_cases()[case]
+    assert t_ca._refine_winner(costs) == _scan_winner(costs)
+    if case.startswith("all"):
+        assert t_ca._refine_winner(costs) is None
+
+
 def _run(name, entry, kind, wall=False, cloud=None):
     pkg = PKGS[name]
     cl = pkg.read_centerline_vtp(VTP)

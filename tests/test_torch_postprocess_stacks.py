@@ -331,6 +331,23 @@ def test_extras_out_of_the_blend_order_take_the_object_path():
     assert _fallbacks(PyGeometryPair(a, b, "p"), TOL, False) == 1
 
 
+@pytest.mark.parametrize("wall_first, fallbacks", [("in frame 1", 1), ("in every frame", 0)])
+def test_a_wall_before_another_extra_keeps_its_place(wall_first, fallbacks):
+    """The rebuilt Wall is left out of the stacks only where it comes last
+    in every frame that holds it: a Wall listed before the Catheter in one
+    frame and after it in the others takes the object path, and one listed
+    first in every frame is rebuilt in its place on the stacks."""
+    a, b = (_geometry(label, [0.0, 0.2, 0.4, 0.6], extras=("Catheter", "Wall"))
+            for label in ("a", "b"))
+    for f in a.frames[1:2] if wall_first == "in frame 1" else a.frames + b.frames:
+        f.extras = {"Wall": f.extras["Wall"], "Catheter": f.extras["Catheter"]}
+    pair = PyGeometryPair(a, b, wall_first)
+    assert _branch(pair, TOL) == "same"
+    assert _fallbacks(pair, TOL, True) == fallbacks
+    got = pp.postprocess_geom_pair(pair, TOL, True)
+    assert ["Wall", "Catheter"] in [list(f.extras) for f in got.geom_a.frames]
+
+
 # -- the exact batched arithmetic the stacks rely on ---------------------------
 
 
